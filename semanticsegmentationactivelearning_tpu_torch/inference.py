@@ -1,0 +1,224 @@
+"""Inference CLI of the PyTorch port: checkpoint -> per-example
+prediction PNGs (the counterpart of the JAX package's root
+``inference.py``).
+
+    python -m semanticsegmentationactivelearning_tpu_torch.inference \\
+        -c CKPT -d DATA_DIR -o OUT -t cityscapes [-b BATCH] [--color]
+
+Reads every ``.tfrecord`` under the data directory (or its test/
+subdirectory), serves each batch through :func:`make_predict_fn` on
+the first CUDA device (the hand-written kernel chain; on a host
+without CUDA, the plain PyTorch chain on the CPU), and writes
+``{output}/{id}.png`` with the dataset-id reverse embedding (default)
+or the colormap (``--color``). ``-c`` takes a port checkpoint or one
+written by the JAX package.
+
+Not ported yet (each raises and names its ROADMAP.md item):
+``--output-size``, ``--modalities`` and ``--view``. Serving uses one
+device; multi-GPU serving is not ported either.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+
+import numpy as np
+import torch
+
+from .data.device_prefetch import device_prefetch
+from .models import get_model
+from .train import checkpoint as ckpt
+
+logger = logging.getLogger(__name__)
+
+_NOT_PORTED = {
+    "size": "--output-size (bilinear resize of the class probabilities; "
+            "a downsample must be antialiased like jax.image.resize) is "
+            "not ported yet: ROADMAP.md Queue 1 item 7",
+    "modalities": "--modalities (extra input planes, no fused front for "
+                  "them) is not ported yet: ROADMAP.md Queue 1 item 7",
+    "view": "--view (the live matplotlib viewer) is not ported yet: "
+            "ROADMAP.md Queue 1 item 7",
+}
+
+
+def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
+                    in_channels: int, device):
+    """The serving hot path: a uint8 record stack ``[B, H, W, >=C]`` on
+    ``device`` -> uint8 label (or colormap) maps cropped to
+    ``height x width``, all on ``device``. The forward is
+    ``model.fused_predict``: the kernel chain on CUDA, its plain
+    version on the CPU. argmax(logits) equals the reference's
+    argmax after softmax."""
+    device = torch.device(device)
+    model = model.to(device).eval()
+    lut = lut.to(device)
+
+    @torch.inference_mode()
+    def predict(stack: torch.Tensor) -> torch.Tensor:
+        image = stack[..., :in_channels].float().div_(255.0).contiguous()
+        pred = model.fused_predict(image)
+        return lut[pred[:, :height, :width].long()]
+
+    return predict
+
+
+def _record_files(data_dir: str, dataset) -> list:
+    def tfrecords(d):
+        return sorted(os.path.join(d, f) for f in os.listdir(d)
+                      if f.endswith(".tfrecord"))
+
+    files = tfrecords(data_dir)
+    if not files:
+        test_dir = dataset.get_test_paths(data_dir)[0]
+        if os.path.isdir(test_dir):
+            files = tfrecords(test_dir)
+    return files
+
+
+def _resolve_model_name(args) -> str:
+    """``--model``, else ``network.model`` from the training run's
+    ``config.json`` next to (or one level above) the checkpoint, else
+    ENet."""
+    if args.model:
+        return args.model
+    start = args.ckpt
+    if not os.path.isdir(start):
+        start = os.path.dirname(os.path.abspath(start))
+    for d in (start, os.path.dirname(start)):
+        cfg = os.path.join(d, "config.json")
+        if os.path.exists(cfg):
+            try:
+                with open(cfg) as fp:
+                    name = json.load(fp).get("network", {}).get("model")
+            except (ValueError, OSError):
+                continue
+            if name:
+                return name
+    logger.info("No config.json found near checkpoint; assuming ENet")
+    return "ENet"
+
+
+def main(args) -> int:
+    for flag, message in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(message)
+    # the JAX package's framework-free record reader, dataset tables and
+    # PNG writer (the loader and the writer pull in PIL); imported here
+    # so that make_predict_fn's import path holds none of them
+    from semanticsegmentationactivelearning_tpu import datasets
+    from semanticsegmentationactivelearning_tpu.data import (example,
+                                                             loader,
+                                                             png_writer)
+    datasets_by_name = {"cityscapes": datasets.Cityscapes,
+                        "freiburg": datasets.Freiburg,
+                        "vistas": datasets.Vistas}
+    if args.dataset not in datasets_by_name:
+        raise NotImplementedError(
+            f'Dataset "{args.dataset}" not yet supported.')
+    dataset = datasets_by_name[args.dataset]()
+
+    if not os.path.isdir(args.data_dir):
+        logger.error("Data dir %s does not exist", args.data_dir)
+        return 1
+    files = _record_files(args.data_dir, dataset)
+    if not files:
+        logger.error("No .tfrecord files under %s", args.data_dir)
+        return 1
+    os.makedirs(args.output, exist_ok=True)
+
+    height, width, channels = example.peek_dims(files[0])
+    logger.info("Input records: %dx%dx%d, %d examples", height, width,
+                channels, len(files))
+    model_name = _resolve_model_name(args)
+    logger.info("Model: %s", model_name)
+    model = get_model(model_name, dataset.num_classes)
+    div = model.input_divisor
+    store_hw = (-(-height // div) * div, -(-width // div) * div)
+
+    rec_loader = loader.RecordLoader(files, args.batch_size,
+                                     storage_hw=store_hw, with_label=False)
+
+    logger.info("Loading checkpoint %s", args.ckpt)
+    ckpt.restore_checkpoint(args.ckpt, model)
+
+    lut = dataset.colormap if args.color else dataset.embedding_reversed
+    if np.ndim(lut) != 1 and not args.color:
+        lut = dataset.colormap  # color-coded datasets reverse-embed to it
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if device.type == "cuda":
+        logger.info("Serving on %s (kernel chain)",
+                    torch.cuda.get_device_name(device))
+        if torch.cuda.device_count() > 1:
+            logger.info("Serving on one of %d GPUs; multi-GPU serving is "
+                        "not ported yet (ROADMAP.md Queue 1 item 10)",
+                        torch.cuda.device_count())
+    else:
+        logger.info("No CUDA device: serving on the CPU (plain chain)")
+    predict = make_predict_fn(model, torch.as_tensor(np.asarray(lut)),
+                              height, width, rec_loader.channels, device)
+
+    written = 0
+    with png_writer.AsyncPngWriter() as writer:
+        for b in device_prefetch(rec_loader.batches(), device):
+            out = predict(b["stack"]).cpu().numpy()
+            paths = []
+            for j in range(len(out)):
+                if not b["valid"][j]:
+                    paths.append(None)
+                    continue
+                file_id = os.path.basename(
+                    str(rec_loader.filenames[b["index"][j]]))
+                paths.append(os.path.join(
+                    args.output, file_id.replace(".tfrecord", "") + ".png"))
+                written += 1
+            writer.submit(paths, out)
+    logger.info("Inference successfully finished (%d files).", written)
+    return 0
+
+
+def parse_arguments(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--checkpoint", type=str, dest="ckpt",
+                        required=True,
+                        help="Checkpoint file or directory (port or JAX).")
+    parser.add_argument("-d", "--data-dir", type=str, dest="data_dir",
+                        required=True,
+                        help="Path to dataset test set directory.")
+    parser.add_argument("-o", "--output", type=str, dest="output",
+                        required=True,
+                        help="Output directory to store prediction maps.")
+    parser.add_argument("-t", "--dataset", type=str, dest="dataset",
+                        required=True,
+                        help="Dataset type: {cityscapes, freiburg, vistas}.")
+    parser.add_argument("-m", "--model", type=str, default=None,
+                        dest="model",
+                        help="Model family of the checkpoint; defaults to "
+                             "the network.model in the config.json next "
+                             "to the checkpoint, else ENet.")
+    parser.add_argument("-s", "--output-size", type=int, nargs=2,
+                        dest="size", default=None,
+                        help="Size of the output images (not ported yet).")
+    parser.add_argument("--color", action="store_true", default=False,
+                        dest="color")
+    parser.add_argument("--modalities", type=str, nargs="+", default=[],
+                        dest="modalities",
+                        help="Extra record modalities (not ported yet).")
+    parser.add_argument("-b", "--batch-size", type=int, default=1,
+                        dest="batch_size",
+                        help="Images per predict call.")
+    parser.add_argument("--view", action="store_true", default=False,
+                        dest="view",
+                        help="Interactive result viewer (not ported yet).")
+    return parser.parse_args(argv)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(
+        level=logging.INFO,
+        format="[%(levelname)s] %(asctime)s --- %(name)s : %(message)s")
+    sys.exit(main(parse_arguments()))

@@ -1,0 +1,236 @@
+"""ENet building blocks as ``nn.Module``s, the PyTorch port of
+``semanticsegmentationactivelearning_tpu/models/blocks.py``.
+
+Activations are NHWC, as in the JAX package; convolutions run on a
+permuted NCHW view. Parameter names mirror the flax tree
+(``proj_conv``, ``proj_bn``, ``proj_prelu``, ...) so that
+``train/bridge.py`` maps one onto the other by name.
+
+The blocks are the eval forward: batch norm always uses its running
+statistics and spatial dropout is never applied. Train-mode batch
+statistics and dropout belong to the training slice (ROADMAP Queue 1
+item 5). The TPU-only pieces of the JAX blocks (the ``conv_impl``
+shifted-matmul lowering, bf16 compute and phase-domain logits) are
+not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import nn as xops
+
+BN_EPS = 1e-3
+
+
+def _same_pads(size: int, k: int, stride: int, dilation: int
+               ) -> Tuple[int, int]:
+    """(low, high) zero padding of XLA's "SAME" rule. A stride-2 3x3
+    conv on an even size pads (0, 1), not (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """No-bias SAME convolution on NHWC tensors; ``weight`` is
+    ``[out, in, kh, kw]``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size=(1, 1),
+                 stride: int = 1, dilation: int = 1):
+        super().__init__()
+        kh, kw = kernel_size
+        self.stride = stride
+        self.dilation = dilation
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kh, kw))
+        nn.init.xavier_uniform_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        kh, kw = w.shape[2:]
+        if (kh, kw) == (1, 1) and self.stride == 1:
+            return x @ w[:, :, 0, 0].t()
+        ph = _same_pads(x.shape[1], kh, self.stride, self.dilation)
+        pw = _same_pads(x.shape[2], kw, self.stride, self.dilation)
+        xc = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+        out = F.conv2d(xc, w, stride=self.stride, dilation=self.dilation)
+        return out.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """No-bias SAME 3x3/stride-2 transposed convolution on NHWC
+    tensors. ``weight`` is ``[in, out, 3, 3]`` and already spatially
+    flipped relative to the flax kernel, so this equals
+    ``lax.conv_transpose(..., "SAME", transpose_kernel=False)``:
+    ``conv_transpose2d(stride=2, padding=0)`` cropped to 2H x 2W."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, 3, 3))
+        nn.init.xavier_uniform_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        out = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight,
+                                 stride=2)
+        return out[:, :, :2 * h, :2 * w].permute(0, 2, 3, 1)
+
+
+class PReLU(nn.Module):
+    """Per-channel parametrized ReLU, ``alpha`` initialised to 0.25."""
+
+    def __init__(self, channels: int, init_alpha: float = 0.25):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((channels,), init_alpha))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return xops.prelu(x, self.alpha)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode batch norm over the last axis with flax's names mapped
+    to torch's (scale/bias/mean/var -> weight/bias/running_mean/
+    running_var) and eps 1e-3."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The affine ``x * s + t`` this layer applies (the kernels fold
+        it into the preceding conv)."""
+        s = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        return s, self.bias - self.running_mean * s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s, t = self.scale_shift()
+        return x * s + t
+
+
+class Initial(nn.Module):
+    """3x3/s2 conv (16 - in_ch filters) || 2x2/s2 max pool -> concat ->
+    BN -> PReLU."""
+
+    def __init__(self, in_ch: int = 3, out_ch: int = 16):
+        super().__init__()
+        self.conv = Conv(in_ch, out_ch - in_ch, (3, 3), stride=2)
+        self.bn = BatchNorm(out_ch)
+        self.prelu = PReLU(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.cat([self.conv(x), xops.max_pool_2x2(x)], dim=-1)
+        return self.prelu(self.bn(out))
+
+
+class Bottleneck(nn.Module):
+    """Plain / dilated / asymmetric (k x 1 then 1 x k) bottleneck:
+    1x1 project (cin/4) -> spatial conv -> 1x1 expand, BN (+PReLU)
+    after each, residual add -> PReLU."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 asymmetric: bool = False, dilation: int = 1,
+                 projection_rate: int = 4):
+        super().__init__()
+        f = channels // projection_rate
+        k = kernel_size
+        self.asymmetric = asymmetric
+        self.dilation = dilation
+        self.proj_conv = Conv(channels, f)
+        self.proj_bn = BatchNorm(f)
+        self.proj_prelu = PReLU(f)
+        if asymmetric:
+            self.conv_col = Conv(f, f, (k, 1))
+            self.conv_row = Conv(f, f, (1, k))
+        else:
+            self.conv = Conv(f, f, (k, k), dilation=dilation)
+        self.conv_bn = BatchNorm(f)
+        self.conv_prelu = PReLU(f)
+        self.exp_conv = Conv(f, channels)
+        self.exp_bn = BatchNorm(channels)
+        self.res_prelu = PReLU(channels)
+
+    def spatial(self, h: torch.Tensor) -> torch.Tensor:
+        if self.asymmetric:
+            return self.conv_row(self.conv_col(h))
+        return self.conv(h)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.proj_prelu(self.proj_bn(self.proj_conv(x)))
+        h = self.conv_prelu(self.conv_bn(self.spatial(h)))
+        h = self.exp_bn(self.exp_conv(h))
+        return self.res_prelu(h + x)
+
+
+class BottleneckDownsample(nn.Module):
+    """2x2/s2 conv projection (2*cin/4) -> 3x3 conv -> 1x1 expand; the
+    residual is a 2x2 max pool with switches, zero-padded in channels.
+    Returns ``(out, switches)``."""
+
+    def __init__(self, in_ch: int, out_ch: int, projection_rate: int = 4):
+        super().__init__()
+        f = 2 * (in_ch // projection_rate)
+        self.out_ch = out_ch
+        self.proj_conv = Conv(in_ch, f, (2, 2), stride=2)
+        self.proj_bn = BatchNorm(f)
+        self.proj_prelu = PReLU(f)
+        self.conv = Conv(f, f, (3, 3))
+        self.conv_bn = BatchNorm(f)
+        self.conv_prelu = PReLU(f)
+        self.exp_conv = Conv(f, out_ch)
+        self.exp_bn = BatchNorm(out_ch)
+        self.res_prelu = PReLU(out_ch)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self.proj_prelu(self.proj_bn(self.proj_conv(x)))
+        h = self.conv_prelu(self.conv_bn(self.conv(h)))
+        h = self.exp_bn(self.exp_conv(h))
+        res, switches = xops.max_pool_with_switches(x)
+        res = F.pad(res, (0, self.out_ch - x.shape[-1]))
+        return self.res_prelu(h + res), switches
+
+
+class BottleneckUpsample(nn.Module):
+    """1x1 project (cin/4) -> 3x3/s2 transposed conv (cin/8) -> 1x1
+    expand; the residual is a 1x1 conv to the output channels unpooled
+    with the encoder's switches."""
+
+    def __init__(self, in_ch: int, out_ch: int, projection_rate: int = 4):
+        super().__init__()
+        f = in_ch // projection_rate
+        self.proj_conv = Conv(in_ch, f)
+        self.proj_bn = BatchNorm(f)
+        self.proj_prelu = PReLU(f)
+        self.deconv = ConvTranspose(f, f // 2)
+        self.conv_bn = BatchNorm(f // 2)
+        self.conv_prelu = PReLU(f // 2)
+        self.exp_conv = Conv(f // 2, out_ch)
+        self.exp_bn = BatchNorm(out_ch)
+        self.res_conv = Conv(in_ch, out_ch)
+        self.res_prelu = PReLU(out_ch)
+
+    def forward(self, x: torch.Tensor, switches: torch.Tensor
+                ) -> torch.Tensor:
+        h = self.proj_prelu(self.proj_bn(self.proj_conv(x)))
+        h = self.conv_prelu(self.conv_bn(self.deconv(h)))
+        h = self.exp_bn(self.exp_conv(h))
+        res = xops.unpool_with_switches(self.res_conv(x), switches)
+        return self.res_prelu(h + res)
+
+
+class Final(nn.Module):
+    """3x3/s2 transposed conv to the class logits (fp32)."""
+
+    def __init__(self, in_ch: int, classes: int):
+        super().__init__()
+        self.deconv = ConvTranspose(in_ch, classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.deconv(x)

@@ -1,0 +1,57 @@
+"""BN folding and weight packing for the kernels of ``csrc/``.
+
+A pack is one flat float32 tensor; the C entries slice it in the same
+order (``csrc/common.cuh`` ``take_*``). Weights go to the JAX
+package's HWIO layout ``[kh, kw, in, out]``; an eval BatchNorm
+``x * s + t`` after a conv folds into ``w * s`` (per output channel)
+and a shift ``t``.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+
+def hwio(conv) -> torch.Tensor:
+    """A ``blocks.Conv`` weight ``[out, in, kh, kw]`` as HWIO."""
+    return conv.weight.detach().permute(2, 3, 1, 0)
+
+
+def deconv_hwio(deconv) -> torch.Tensor:
+    """A ``blocks.ConvTranspose`` weight (flipped ``[in, out, kh, kw]``)
+    as the JAX kernel ``[kh, kw, in, out]`` of the polyphase identity."""
+    return deconv.weight.detach().flip(2, 3).permute(2, 3, 0, 1)
+
+
+def affine(w_hwio: torch.Tensor, bn, prelu=None) -> List[torch.Tensor]:
+    """``[w * s, t]`` (+ PReLU alpha) for a conv followed by ``bn``."""
+    s, t = bn.scale_shift()
+    parts = [w_hwio * s, t]
+    if prelu is not None:
+        parts.append(prelu.alpha)
+    return parts
+
+
+def bottleneck(blk) -> List[torch.Tensor]:
+    """A ``Bottleneck`` (plain 3x3) or ``BottleneckDownsample`` (2x2/s2
+    projection): proj, conv, expand and the residual PReLU."""
+    return (affine(hwio(blk.proj_conv), blk.proj_bn, blk.proj_prelu)
+            + affine(hwio(blk.conv), blk.conv_bn, blk.conv_prelu)
+            + affine(hwio(blk.exp_conv), blk.exp_bn)
+            + [blk.res_prelu.alpha])
+
+
+def upsample(blk) -> List[torch.Tensor]:
+    """A ``BottleneckUpsample``: proj, transposed conv, expand, the
+    residual 1x1 conv (no BN) and the residual PReLU."""
+    return (affine(hwio(blk.proj_conv), blk.proj_bn, blk.proj_prelu)
+            + affine(deconv_hwio(blk.deconv), blk.conv_bn, blk.conv_prelu)
+            + affine(hwio(blk.exp_conv), blk.exp_bn)
+            + [hwio(blk.res_conv), blk.res_prelu.alpha])
+
+
+def flat(parts: List[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).float() for p in parts]) \
+        .contiguous()

@@ -1,0 +1,80 @@
+"""ENet predict tail: (stage-3 features, B2_0 switches, B1_0 mask) ->
+per-pixel labels.
+
+The port of ``fused_tail_predict`` (``ops/pallas_kernels.py:2810``);
+the CUDA kernel is ``csrc/tail.cu``. Same contract: ``y [N, H8, W8,
+128]`` float32, ``sw2`` int8 ``[N, H8, W8, 64]``, ``mask1 [N, 2*H8,
+2*W8, 64]`` float32 one-hot -> int8 labels ``[N, 8*H8, 8*W8]``, the
+first maximum of the class logits. Full-resolution logits never reach
+memory on the kernel path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build, packing
+
+MAX_CLASSES = 127  # labels are int8
+
+
+def pack_tail(model) -> torch.Tensor:
+    """Fold BN into B4_0, B4_1, B4_2, B5_0, B5_1 and append the Final
+    kernel (layout of ``csrc/tail.cu`` ``ssal_tail_predict``)."""
+    parts = packing.upsample(model.Bottleneck4_0)
+    for blk in model.blocks(model.stage4):
+        parts += packing.bottleneck(blk)
+    parts += packing.upsample(model.Bottleneck5_0)
+    parts += packing.bottleneck(model.Bottleneck5_1)
+    parts.append(packing.deconv_hwio(model.Final.deconv))
+    return packing.flat(parts)
+
+
+def mask_to_switches(mask1: torch.Tensor) -> torch.Tensor:
+    """The one-hot mask ``[N, h, w, 64]`` -> int8 switches
+    ``[N, h, w*16]`` (the inverse of ``front.switches_to_mask``)."""
+    n, h, w, _ = mask1.shape
+    return (mask1.reshape(n, h, w, 4, 16).argmax(dim=3)
+            .to(torch.int8).reshape(n, h, w * 16))
+
+
+def tail_predict_plain(y: torch.Tensor, sw2: torch.Tensor,
+                       mask1: torch.Tensor, model) -> torch.Tensor:
+    """The plain PyTorch version, from the model's own blocks (it does
+    materialize the full-resolution logits)."""
+    n, h8, w8, _ = y.shape
+    logits = model.forward_tail(y, sw2.reshape(n, h8, w8 * 64),
+                                mask_to_switches(mask1))
+    return logits.argmax(dim=-1).to(torch.int8)
+
+
+def fused_tail_predict(y: torch.Tensor, sw2: torch.Tensor,
+                       mask1: torch.Tensor, model) -> torch.Tensor:
+    """Labels int8 ``[N, H, W]``: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    if y.device.type == "cpu":
+        return tail_predict_plain(y, sw2, mask1, model)
+    build.require(y, "y", torch.float32, (None, None, None, 128))
+    n, h8, w8, _ = y.shape
+    build.require(sw2, "sw2", torch.int8, (n, h8, w8, 64))
+    build.require(mask1, "mask1", torch.float32, (n, 2 * h8, 2 * w8, 64))
+    c = model.num_classes
+    if c > MAX_CLASSES:
+        raise ValueError(f"int8 labels hold at most {MAX_CLASSES} "
+                         f"classes, got {c}")
+    lib = build.library()
+    pack = model.packed("tail", y.device, pack_tail)
+    build.require_pack(pack, lib.ssal_tail_pack_size(c), "tail")
+    labels = torch.empty((n, 8 * h8, 8 * w8), dtype=torch.int8,
+                         device=y.device)
+    with torch.cuda.device(y.device):
+        build.check(lib.ssal_tail_predict(build.ptr(y), build.ptr(sw2),
+                                          build.ptr(mask1), build.ptr(pack),
+                                          build.ptr(labels), n, h8, w8, c,
+                                          build.stream_of(y)),
+                    "tail predict kernel")
+    fused_tail_predict.launches += 1
+    return labels
+
+
+fused_tail_predict.launches = 0

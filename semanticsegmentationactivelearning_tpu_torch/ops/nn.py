@@ -1,0 +1,87 @@
+"""Low-level neural-net ops, the PyTorch port of
+``semanticsegmentationactivelearning_tpu/ops/nn.py``.
+
+Tensors keep the JAX package's NHWC layout so both packages compare
+like with like. Pooling returns the window position of each maximum
+(0..3, row-major, first maximum wins like ``tf.argmax``/``jnp.argmax``)
+instead of flat argmax indices; unpooling places each value back at
+that position and zeros elsewhere.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Parametrized ReLU with a per-channel (last axis) ``alpha``."""
+    return torch.where(x >= 0, x, alpha * x)
+
+
+def _to_windows(x: torch.Tensor) -> torch.Tensor:
+    """``[N,H,W,C] -> [N,H/2,W/2,4,C]`` row-major 2x2 windows."""
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"2x2 pooling needs even spatial dims, got {h}x{w}")
+    win = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return win.reshape(n, h // 2, w // 2, 4, c)
+
+
+def _from_windows(win: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_to_windows`."""
+    n, h2, w2, _four, c = win.shape
+    out = win.reshape(n, h2, w2, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(n, 2 * h2, 2 * w2, c)
+
+
+def max_pool_with_switches(x: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2x2/stride-2 max pool returning ``(pooled, switches)``.
+
+    ``switches`` is int8 ``[N, H/2, (W/2)*C]`` (a free reshape of
+    ``[N, H/2, W/2, C]``) holding each maximum's window position,
+    first maximum on ties (``torch.argmax`` returns the first one).
+    """
+    win = _to_windows(x)
+    pooled = win.amax(dim=3)
+    idx = torch.argmax(win, dim=3).to(torch.int8)
+    n, h2, w2, c = pooled.shape
+    return pooled, idx.reshape(n, h2, w2 * c)
+
+
+def switches_to_onehot(switches: torch.Tensor, channels: int,
+                       dtype=torch.float32) -> torch.Tensor:
+    """Expand int8 switches ``[N,h,w*C]`` to one-hot ``[N,h,w,4,C]``."""
+    n, h2, flat = switches.shape
+    idx = switches.reshape(n, h2, flat // channels, 1, channels).long()
+    pos = torch.arange(4, device=switches.device).view(1, 1, 1, 4, 1)
+    return (idx == pos).to(dtype)
+
+
+def unpool_with_switches(y: torch.Tensor, switches: torch.Tensor
+                         ) -> torch.Tensor:
+    """Place each pooled value at its recorded window position, zeros
+    elsewhere: ``[N,h,w,C] -> [N,2h,2w,C]``."""
+    onehot = switches_to_onehot(switches, y.shape[-1], dtype=y.dtype)
+    return _from_windows(y[:, :, :, None, :] * onehot)
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """Plain 2x2/stride-2 max pool (the Initial block's pool branch)."""
+    return _to_windows(x).amax(dim=3)
+
+
+def spatial_dropout(x: torch.Tensor, rate: float,
+                    generator: Optional[torch.Generator] = None,
+                    training: bool = True) -> torch.Tensor:
+    """Channel-wise spatial dropout with noise shape ``[N,1,1,C]``.
+    Identity in eval or at rate 0; serving never calls it with
+    ``training=True``."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    noise = torch.rand((x.shape[0], 1, 1, x.shape[-1]),
+                       generator=generator, device=x.device)
+    return torch.where(noise < keep, x / keep, torch.zeros_like(x))

@@ -1,0 +1,147 @@
+"""The PyTorch port's CUDA kernels on the card (marked ``cuda``; every
+test skips without a CUDA device). This file imports neither JAX nor
+the JAX package, so it also runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -o addopts="" -m cuda \\
+        tests/test_torch_cuda.py -q
+
+Each kernel is held against its plain PyTorch version on the same
+inputs, with TF32 off on both sides: features rtol = atol = 1e-4;
+switches exact where the pooled window's top-2 gap exceeds 1e-4;
+labels exact where the top-2 logit margin exceeds 1e-3."""
+
+import numpy as np
+import pytest
+import torch
+
+from semanticsegmentationactivelearning_tpu_torch.data.device_prefetch \
+    import device_prefetch
+from semanticsegmentationactivelearning_tpu_torch.inference import (
+    make_predict_fn)
+from semanticsegmentationactivelearning_tpu_torch.models import ENet
+from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+    front, mid, tail)
+
+pytestmark = pytest.mark.cuda
+C = 19
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = ENet(C)
+    rng = np.random.default_rng(0)
+    sd = {}
+    for k, v in m.state_dict().items():
+        if k.endswith("running_mean"):
+            v = torch.tensor(np.abs(rng.normal(size=v.shape, scale=0.3)))
+        elif k.endswith("running_var"):
+            v = 1 + torch.tensor(np.abs(rng.normal(size=v.shape, scale=0.3)))
+        elif k == "Final.deconv.weight":
+            v = v * 25  # spread the logits so most pixels are decided
+        sd[k] = v.float()
+    m.load_state_dict(sd)
+    return m.cuda()
+
+
+def _image(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        size=shape).astype(np.float32)).cuda()
+
+
+def _gap(x):
+    n, h, w, c = x.shape
+    win = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
+    top2 = win.reshape(n, h // 2, w // 2, c, 4).topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def _decided(logits, margin=1e-3):
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > margin
+
+
+# ragged tiles in every kernel, one tile, and batch 3
+SHAPES = [(2, 72, 88, 3), (1, 8, 8, 3), (3, 64, 96, 3), (1, 136, 40, 3)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernels_match_plain_versions(model, shape):
+    image = _image(shape, 1)
+    n, h, w, _ = shape
+    with torch.no_grad():
+        x1p, m1p = front.front_stage1_plain(image, model)
+        x1, m1 = front.fused_front_stage1(image, model)
+        torch.testing.assert_close(x1, x1p, **TOL)
+        gap = _gap(model.Initial(image))
+        sw = m1.reshape(n, h // 4, w // 4, 4, 16).argmax(3)
+        swp = m1p.reshape(n, h // 4, w // 4, 4, 16).argmax(3)
+        assert torch.equal(sw[gap > 1e-4], swp[gap > 1e-4])
+
+        yp, sw2p = mid.mid_stage23_plain(x1p, model)
+        y, sw2 = mid.fused_mid_stage23(x1p, model)
+        torch.testing.assert_close(y, yp, **TOL)
+        gap = _gap(x1p)
+        assert torch.equal(sw2[gap > 1e-4], sw2p[gap > 1e-4])
+
+        labels = tail.fused_tail_predict(yp, sw2p, m1p, model)
+        logits = model.forward_tail(yp, sw2p.reshape(n, h // 8, w // 8 * 64),
+                                    tail.mask_to_switches(m1p))
+    decided = _decided(logits)
+    # not vacuous; 0.95, not 0.99, since the smallest shape has 64 pixels
+    assert decided.float().mean() > 0.95
+    assert torch.equal(labels.long()[decided], logits.argmax(-1)[decided])
+
+
+def test_fused_predict_counts_its_launches(model):
+    image = _image((2, 64, 64, 3), 2)
+    wrappers = (front.fused_front_stage1, mid.fused_mid_stage23,
+                tail.fused_tail_predict)
+    before = [fn.launches for fn in wrappers]
+    labels = model.fused_predict(image)
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in wrappers]
+    assert [a - b for a, b in zip(after, before)] == \
+        [1, mid.LAUNCHES_PER_CALL, 1]
+    assert labels.dtype == torch.int32 and labels.is_cuda
+    with torch.no_grad():
+        logits = model(image)
+    decided = _decided(logits)
+    # the chain feeds each stage slightly different fp32 inputs than
+    # the plain forward, so a near-tied pool switch may flip
+    agree = (labels.long() == logits.argmax(-1))[decided].float().mean()
+    assert agree > 0.999
+
+
+def test_wrappers_validate_their_inputs(model):
+    image = _image((1, 16, 16, 3), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        front.fused_front_stage1(image.transpose(1, 2), model)
+    with pytest.raises(TypeError):
+        front.fused_front_stage1(image.double(), model)
+    with pytest.raises(ValueError):
+        front.fused_front_stage1(_image((1, 12, 16, 3), 3), model)
+    with pytest.raises(ValueError):
+        tail.fused_tail_predict(
+            torch.zeros(1, 2, 2, 128, device="cuda"),
+            torch.zeros(1, 2, 2, 64, dtype=torch.int8, device="cuda"),
+            torch.zeros(1, 2, 2, 64, device="cuda"), model)
+
+
+def test_serving_through_device_prefetch(model):
+    lut = torch.arange(256, dtype=torch.uint8)
+    predict = make_predict_fn(model, lut, 60, 90, 3, "cuda")
+    rng = np.random.default_rng(4)
+    host = [{"stack": rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)}
+            for _ in range(3)]
+    for b, src in zip(device_prefetch(iter(host), "cuda"), host):
+        assert b["stack"].is_cuda
+        out = predict(b["stack"])
+        assert out.dtype == torch.uint8 and out.shape == (2, 60, 90)
+        want = model.fused_predict(
+            torch.from_numpy(src["stack"]).cuda().float() / 255.0)
+        assert torch.equal(out.long(), want[:, :60, :90].long())
