@@ -1,61 +1,111 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's ENet serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's ENet serving and pool-scoring paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure raises, so the exit code is not 0):
   1. device: the card's name and power limit; CUDA must be present.
   2. build: nvcc compiles the kernels of
-     semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a.
-  3. kernels: each kernel (front, mid, tail predict) against its plain
-     PyTorch version on the same inputs at ENet-19, batch 2, 1024x2048,
-     with seeded weights (glorot-uniform convs, noised BN statistics);
-     also each one's time beside its plain version's.
+     semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a, one
+     process per source.
+  3. kernels: the serving kernels (front, mid, tail predict) against
+     their plain PyTorch versions on the same inputs at ENet-19, batch 2,
+     1024x2048, with seeded weights (glorot-uniform convs, noised BN
+     statistics); also each one's time beside its plain version's.
   4. serve: a seeded checkpoint saved and restored through the port's
      checkpoint module, then make_predict_fn over uint8 batches fed by
      device_prefetch. The kernels' launch counters are zeroed before this
      run and must show every kernel launched in it; the served maps must
      agree with the plain chain where its top-2 logit margin is decided.
-     The inference CLI runs on a few records too when PIL is installed.
+     Then the inference CLI on four records.
+  5. score, at the active-learning loop's shape (ENet-19, batch 8,
+     512x1024, conf/enet_cityscapes_active_learning.json):
+     a. the three score kernels (tail, decoder, deconv) against their
+        plain versions on the same inputs, |score difference| <= 1e-4 per
+        image, with the smoke's Final kernel (x25), the recipe's (x1) and
+        a sharp one (x1000), so that both ends of the entropy are held;
+        each one's time beside its plain version's.
+     b. the pool: 6 uint8 batches through device_prefetch, /255 and
+        make_score_step(model, 19, "entropy"), with the counters zeroed
+        before; the scores against the plain chain's; then one batch
+        through each of the decoder and deconv routes of fused_score.
+  6. where the time goes: torch.profiler over PROFILE_BATCHES batches
+     (after 2 warm-up) of the serving and the scoring chain, each as the
+     kernel chain and as the plain chain. For each: the wall time per
+     batch (host clock, profiler on, ending in a synchronize), the
+     device-busy share of that window (the union of the CUDA kernel and
+     copy intervals over the wall time) and the device time per batch of
+     each kernel name, largest first.
 Prints the card, a JSON line of per-kernel results, and last
-{"ok": true, "device": {...}}. This process imports neither JAX nor the
-JAX package (checked at the end). The CLI phase's child processes use
-the JAX package's framework-free record codec, as the port's CLI does.
+{"ok": true, "device": {...}}. Neither this process nor its child
+processes (the record writer and the CLI) import JAX or the JAX package;
+each checks its own modules at its end.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from collections import defaultdict
 
 import numpy as np
+import PIL  # noqa: F401  (the CLI phase writes and reads PNGs)
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from torch.utils.flop_counter import FlopCounterMode
 
 N, H, W, CLASSES = 2, 1024, 2048, 19
+# the AL loop's scoring shape: batch_size 8 at 512x1024
+# (conf/enet_cityscapes_active_learning.json), fp32
+SN, SH, SW = 8, 512, 1024
+POOL_BATCHES = 6
 # The recipe alone gives logits with a standard deviation of about 0.04,
 # and only ~91% of pixels clear the 1e-3 label margin; a trained
 # classifier spreads its logits over units. Scaling the Final kernel by
 # 25 brings the decided share above 99% (measured on CPU at 256x512).
 FINAL_SCALE = 25.0
+SCORE_SCALES = (FINAL_SCALE, 1.0, 1000.0)  # phase 5a's Final kernels
+SCORE_TOL = 1e-4                           # |score difference| per image
 BATCHES, WARMUP = 10, 2  # served batches; the first WARMUP are not timed
 REPS = 5                 # timed runs per kernel and per plain version
+PROFILE_BATCHES = 5      # phase 6's profiled batches per chain
+# published H100 SXM peaks: fp32 outside the tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 _PALLAS = "semanticsegmentationactivelearning_tpu/ops/pallas_kernels.py"
-REPLACES = {"front": f"{_PALLAS}:1474", "mid": f"{_PALLAS}:2184",
-            "tail": f"{_PALLAS}:2810"}
-SOURCES = {k: f"semanticsegmentationactivelearning_tpu_torch/csrc/{k}.cu"
-           for k in REPLACES}
+_CSRC = "semanticsegmentationactivelearning_tpu_torch/csrc"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "front": (f"{_CSRC}/front.cu", f"{_PALLAS}:1474"),
+    "mid": (f"{_CSRC}/mid.cu", f"{_PALLAS}:2184"),
+    "tail": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2810"),
+    "tail_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2720"),
+    "decoder_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:687"),
+    "deconv_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:344"),
+}
+# appended to each child script: fail if it imported JAX or the JAX
+# package
+JAX_SIDE = ("jax", "flax", "optax", "semanticsegmentationactivelearning_tpu")
+LEAK_CHECK = (
+    "import sys as _s\n"
+    "_bad = sorted(m for m in _s.modules\n"
+    f"              if m.split('.')[0] in {JAX_SIDE!r})\n"
+    "if _bad:\n"
+    "    raise SystemExit(f'imported JAX or the JAX package: {_bad}')\n")
 
 
-def seeded_state_dict(model, seed: int) -> dict:
+def seeded_state_dict(model, seed: int,
+                      final_scale: float = FINAL_SCALE) -> dict:
     """Glorot-uniform conv weights, BN scale 1 / bias 0 with running
     mean |N(0, 0.3)| and var 1 + |N(0, 0.3)|, PReLU 0.25 (the noised-BN
     recipe of the JAX package's kernel tests), from numpy; the Final
-    kernel is scaled by FINAL_SCALE."""
+    kernel is scaled by ``final_scale``."""
     rng = np.random.default_rng(seed)
     out = {}
     for key, v in model.state_dict().items():
@@ -75,7 +125,7 @@ def seeded_state_dict(model, seed: int) -> dict:
         else:
             a = np.zeros(shape)
         if key == "Final.deconv.weight":
-            a = a * FINAL_SCALE
+            a = a * final_scale
         out[key] = torch.tensor(a, dtype=torch.float32)
     return out
 
@@ -93,6 +143,43 @@ def cuda_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def roofline(fn, args, outs, extra_flops: float = 0.0) -> dict:
+    """The least time the card could take for ``fn(*args)``: the larger
+    of its operations over the fp32 peak and of its bytes (each input
+    read once, each output in ``outs`` written once) over the memory
+    rate. Operations are the convolution and matmul FLOPs of ``fn``
+    run on meta copies of ``args`` (its plain version) plus
+    ``extra_flops``; a model in ``args`` counts as all of its weights
+    (1.4 MB for ENet-19, more than any one kernel reads)."""
+    meta, nbytes = [], 0
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            nbytes += a.numel() * a.element_size()
+            meta.append(torch.empty_like(a, device="meta"))
+        elif isinstance(a, torch.nn.Module):
+            nbytes += sum(p.numel() * p.element_size()
+                          for p in a.parameters())
+            m = copy.deepcopy(a).to("meta")
+            m.clear_packs()
+            meta.append(m)
+        else:
+            meta.append(a)
+    nbytes += sum(o.numel() * o.element_size() for o in outs)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        fn(*meta)
+    flops = fc.get_total_flops() + extra_flops
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def softmax_flops(n, h, w, c) -> float:
+    """Per pixel and class of an entropy score: subtract the maximum,
+    exp, multiply, and two adds."""
+    return 5.0 * n * h * w * c
 
 
 def window_gap(x: torch.Tensor) -> torch.Tensor:
@@ -141,7 +228,9 @@ def check_kernels(model, seed: int) -> dict:
         res["front"] = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: front.fused_front_stage1(image, model)),
-            plain_ms=cuda_ms(lambda: front.front_stage1_plain(image, model)))
+            plain_ms=cuda_ms(lambda: front.front_stage1_plain(image, model)),
+            **roofline(front.front_stage1_plain, (image, model),
+                       (x1k, m1k)))
         # mid, on the plain front's output
         yp, sw2p = mid.mid_stage23_plain(x1p, model)
         yk, sw2k = mid.fused_mid_stage23(x1p, model)
@@ -159,7 +248,8 @@ def check_kernels(model, seed: int) -> dict:
         res["mid"] = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: mid.fused_mid_stage23(x1p, model)),
-            plain_ms=cuda_ms(lambda: mid.mid_stage23_plain(x1p, model)))
+            plain_ms=cuda_ms(lambda: mid.mid_stage23_plain(x1p, model)),
+            **roofline(mid.mid_stage23_plain, (x1p, model), (yk, sw2k)))
         # tail, on the plain mid's and front's outputs
         lk = tail.fused_tail_predict(yp, sw2p, m1p, model)
         logits = model.forward_tail(yp, sw2p.reshape(N, H // 8, W // 8 * 64),
@@ -177,11 +267,24 @@ def check_kernels(model, seed: int) -> dict:
             max_abs_err=float(diff.max().item()) if diff.numel() else 0.0,
             ms=cuda_ms(lambda: tail.fused_tail_predict(yp, sw2p, m1p, model)),
             plain_ms=cuda_ms(
-                lambda: tail.tail_predict_plain(yp, sw2p, m1p, model)))
+                lambda: tail.tail_predict_plain(yp, sw2p, m1p, model)),
+            **roofline(tail.tail_predict_plain, (yp, sw2p, m1p, model),
+                       (lk,)))
     for k, r in res.items():
         print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
               f"(batch {N}, {H}x{W})")
     return res
+
+
+def plain_predict(model, lut, stack):
+    """The serving chain through the plain versions of its kernels."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        front, mid, tail)
+    with torch.inference_mode():
+        image = stack.float().div_(255.0)
+        x1, m1 = front.front_stage1_plain(image, model)
+        y, sw2 = mid.mid_stage23_plain(x1, model)
+        return lut[tail.tail_predict_plain(y, sw2, m1, model).long()]
 
 
 def serve(model_state: dict, seed: int):
@@ -236,20 +339,12 @@ def serve(model_state: dict, seed: int):
     kernel_ms = float(np.median([s.elapsed_time(e)
                                  for s, e in times[WARMUP:]]))
 
-    def plain_predict(stack):
-        with torch.inference_mode():
-            image = stack.float().div_(255.0)
-            x1, m1 = front.front_stage1_plain(image, model)
-            y, sw2 = mid.mid_stage23_plain(x1, model)
-            return lut.to(dev)[tail.tail_predict_plain(y, sw2, m1, model)
-                               .long()]
-
-    ptimes = []
+    ptimes, lut = [], lut.to(dev)
     for stack in stacks:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        plain_predict(stack)
+        plain_predict(model, lut, stack)
         end.record()
         ptimes.append((start, end))
     torch.cuda.synchronize()
@@ -282,16 +377,16 @@ def serve(model_state: dict, seed: int):
 
 
 def run_cli(model, seed: int) -> None:
-    """The port's inference CLI on four 1024x2048 records (needs PIL for
-    the record images and the PNGs). The records are written, and read
-    by the CLI, with the JAX package's TFRecord and example modules,
-    which import no JAX; both run in child processes."""
+    """The port's inference CLI on four 1024x2048 records. The records
+    are written, and read by the CLI, with the port's TFRecord and
+    example modules; both run in child processes, which check at their
+    end that they imported neither JAX nor the JAX package."""
     from semanticsegmentationactivelearning_tpu_torch.train import (
         checkpoint)
-    script = (
+    writer = (
         "import sys, numpy as np, io\n"
         "from PIL import Image\n"
-        "from semanticsegmentationactivelearning_tpu.data import "
+        "from semanticsegmentationactivelearning_tpu_torch.data import "
         "example, tfrecord\n"
         "rng = np.random.default_rng(int(sys.argv[2]))\n"
         "def png(a):\n"
@@ -304,18 +399,28 @@ def run_cli(model, seed: int) -> None:
         " width=img.shape[1], label=png(lbl),"
         " modalities={'image': (png(img), 'png', 3)})\n"
         "    tfrecord.write_record_file(f'{sys.argv[1]}/r{i}.tfrecord',"
-        " example.make_example(ex))\n")
+        " example.make_example(ex))\n" + LEAK_CHECK)
+    cli = (
+        "import runpy, sys\n"
+        "sys.argv[0] = 'inference'\n"
+        "try:\n"
+        "    runpy.run_module("
+        "'semanticsegmentationactivelearning_tpu_torch.inference',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    if e.code:\n"
+        "        raise\n"
+        + LEAK_CHECK)
     with tempfile.TemporaryDirectory() as tmp:
         rec, out = os.path.join(tmp, "rec"), os.path.join(tmp, "out")
         os.makedirs(rec)
         ck = checkpoint.save_checkpoint(os.path.join(tmp, "m.ckpt"), model)
-        subprocess.run([sys.executable, "-c", script, rec, str(seed)],
+        subprocess.run([sys.executable, "-c", writer, rec, str(seed)],
                        check=True)
         t0 = time.perf_counter()
         res = subprocess.run(
-            [sys.executable, "-m",
-             "semanticsegmentationactivelearning_tpu_torch.inference",
-             "-c", ck, "-d", rec, "-o", out, "-t", "cityscapes", "-b", "2"],
+            [sys.executable, "-c", cli, "-c", ck, "-d", rec, "-o", out,
+             "-t", "cityscapes", "-b", "2"],
             capture_output=True, text=True)
         if res.returncode != 0:
             raise AssertionError("inference CLI failed:\n" + res.stdout
@@ -324,6 +429,239 @@ def run_cli(model, seed: int) -> None:
         print(f"cli: {len(pngs)} PNGs in {time.perf_counter() - t0:.1f} s")
         if pngs != [f"r{i}.png" for i in range(4)]:
             raise AssertionError(f"inference CLI wrote {pngs}")
+
+
+def score_model(seed: int, final_scale: float):
+    from semanticsegmentationactivelearning_tpu_torch.models import (
+        get_model)
+    model = get_model("ENet", CLASSES)
+    model.load_state_dict(seeded_state_dict(model, seed, final_scale))
+    return model.cuda().eval()
+
+
+def check_score_kernels(seed: int) -> dict:
+    """Phase 5a: each score kernel against its plain version on the same
+    inputs (the plain chain's activations of one seeded batch), at each
+    Final scale of SCORE_SCALES; timed at the first."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        deconv_score, decoder, front, mid, packing, tail)
+    rng = np.random.default_rng(seed + 3)
+    image = torch.from_numpy(rng.integers(0, 256, (SN, SH, SW, 3),
+                                          dtype=np.uint8)).cuda()
+    image = image.float() / 255.0
+    res = {}
+    for scale in SCORE_SCALES:
+        model = score_model(seed, scale)
+        with torch.no_grad():
+            x1, m1 = front.front_stage1_plain(image, model)
+            y, sw2 = mid.mid_stage23_plain(x1, model)
+            f4 = model.forward_stage4(y, sw2.reshape(SN, SH // 8,
+                                                     SW // 8 * 64))
+            pre = model.decode_from_stage4(f4, tail.mask_to_switches(m1))
+            kernel = packing.deconv_hwio(model.Final.deconv).contiguous()
+            cases = {
+                "tail_score": (tail.fused_tail_entropy_score,
+                               tail.tail_score_plain, (y, sw2, m1, model)),
+                "decoder_score": (
+                    lambda f, m, mdl: decoder.fused_decoder_entropy_score(
+                        f, None, mdl, mask=m),
+                    decoder.decoder_score_plain, (f4, m1, model)),
+                "deconv_score": (deconv_score.fused_deconv_entropy_score,
+                                 deconv_score.deconv_score_plain,
+                                 (pre, kernel, CLASSES)),
+            }
+            for name, (fused, plain, args) in cases.items():
+                got, want = fused(*args), plain(*args)
+                again = fused(*args)
+                err = (got - want).abs().max().item()
+                print(f"{name} (Final x{scale:g}): scores "
+                      f"{[round(v, 6) for v in got.tolist()]}, max "
+                      f"|k-p| {err:.3e}, repeat identical "
+                      f"{torch.equal(got, again)}")
+                if not err <= SCORE_TOL or not torch.isfinite(got).all():
+                    raise AssertionError(f"{name}: scores differ by {err}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: not bit-repeatable")
+                r = res.setdefault(name, dict(max_abs_err=0.0))
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                if len(r) == 1:  # time at the first scale only
+                    r["ms"] = cuda_ms(lambda: fused(*args))
+                    r["plain_ms"] = cuda_ms(lambda: plain(*args))
+                    r.update(roofline(plain, args, (got,), softmax_flops(
+                        SN, SH, SW, CLASSES)))
+        del x1, m1, y, sw2, f4, pre
+    for k, r in res.items():
+        print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
+              f"(batch {SN}, {SH}x{SW})")
+    return res
+
+
+def score_pool(seed: int):
+    """Phase 5b, the scoring path: uint8 batches through device_prefetch,
+    /255 and make_score_step; then the decoder and deconv routes of
+    fused_score once each. Returns (launch counts, kernel ms/batch,
+    plain ms/batch)."""
+    from semanticsegmentationactivelearning_tpu_torch.data.device_prefetch \
+        import device_prefetch
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        deconv_score, decoder, front, mid, tail)
+    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+        make_score_step)
+    model = score_model(seed, FINAL_SCALE)
+    score_step = make_score_step(model, CLASSES, "entropy")
+    plain_step = make_score_step(model, CLASSES, "entropy", fused=False)
+    rng = np.random.default_rng(seed + 4)
+    host = [{"stack": rng.integers(0, 256, (SN, SH, SW, 3), dtype=np.uint8)}
+            for _ in range(POOL_BATCHES)]
+
+    def timed(step, stacks):
+        out = []
+        for stack in stacks:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            scores = step({"image": stack.float().div_(255.0)})
+            end.record()
+            out.append((scores, start, end))
+        torch.cuda.synchronize()
+        ms = float(np.median([s.elapsed_time(e) for _, s, e in out[WARMUP:]]))
+        return [sc for sc, _, _ in out], ms
+
+    wrappers = (front.fused_front_stage1, mid.fused_mid_stage23,
+                tail.fused_tail_entropy_score, tail.fused_tail_predict,
+                decoder.fused_decoder_entropy_score,
+                deconv_score.fused_deconv_entropy_score)
+    for fn in wrappers:
+        fn.launches = 0
+    stacks = []
+
+    def prefetched():
+        for b in device_prefetch(iter(host), "cuda"):
+            stacks.append(b["stack"])
+            yield b["stack"]
+
+    scores, kernel_ms = timed(score_step, prefetched())
+    launches = [fn.launches for fn in wrappers]
+    per_batch = [1, mid.LAUNCHES_PER_CALL, 1, 0, 0, 0]
+    print(f"score: {len(scores)} batches, launches front/mid/tail score/"
+          f"tail predict/decoder/deconv {launches} (expected "
+          f"{[p * POOL_BATCHES for p in per_batch]})")
+    if launches != [p * POOL_BATCHES for p in per_batch]:
+        raise AssertionError("the pool run did not go front -> mid -> tail "
+                             "score once per batch")
+    plain, plain_ms = timed(plain_step, stacks)
+    err = max((k - p).abs().max().item() for k, p in zip(scores, plain))
+    print(f"score: kernel chain {kernel_ms:.3f} ms/batch "
+          f"({1e3 * SN / kernel_ms:.1f} images/s), plain chain "
+          f"{plain_ms:.3f} ms/batch ({1e3 * SN / plain_ms:.1f} images/s) "
+          f"(median of {POOL_BATCHES - WARMUP}, batch {SN}, {SH}x{SW}); "
+          f"max |k-p| score {err:.3e}; first batch "
+          f"{[round(v, 6) for v in scores[0].tolist()]}")
+    if scores[0].shape != (SN,) or scores[0].dtype != torch.float32 \
+            or not all(torch.isfinite(s).all() for s in scores):
+        raise AssertionError(f"scores: {scores[0].shape} {scores[0].dtype}")
+    if not err <= SCORE_TOL:
+        raise AssertionError("pool scores disagree with the plain chain")
+
+    image = stacks[0].float() / 255.0
+    route_launches = {}
+    for name, fn, kw in (("decoder_score", decoder.fused_decoder_entropy_score,
+                          dict(fuse_tail=False)),
+                         ("deconv_score",
+                          deconv_score.fused_deconv_entropy_score,
+                          dict(fuse_decoder=False))):
+        fn.launches = 0
+        got = model.fused_score(image, "entropy", **kw)
+        torch.cuda.synchronize()
+        route_launches[name] = fn.launches
+        err = (got - plain[0]).abs().max().item()
+        print(f"score: fused_score({kw}) launched {name} {fn.launches} "
+              f"time(s); max |k-p| {err:.3e}")
+        if fn.launches != 1 or not err <= SCORE_TOL:
+            raise AssertionError(f"the {name} route failed")
+    launches = dict(tail_score=launches[2], **route_launches)
+    return launches, kernel_ms, plain_ms
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its return type, anonymous namespace and
+    argument list."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name[5:] if name.startswith("void ") else name
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_chain(label: str, fn, x) -> None:
+    """Phase 6 for one chain: ``fn(x)`` twice to warm up, then
+    PROFILE_BATCHES times under torch.profiler."""
+    for _ in range(WARMUP):
+        fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_BATCHES):
+            fn(x)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    per_name, intervals = defaultdict(float), []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        per_name[short_name(e.name)] += e.time_range.elapsed_us()
+        intervals.append((e.time_range.start, e.time_range.end))
+    if not intervals:
+        raise RuntimeError(f"{label}: the profiler saw no device activity")
+    total = sum(per_name.values())
+    print(f"profile: {label}: wall {wall_us / PROFILE_BATCHES / 1e3:.3f} "
+          f"ms/batch (profiler on), device busy "
+          f"{100 * busy_us(intervals) / wall_us:.1f}%, kernel time "
+          f"{total / PROFILE_BATCHES / 1e3:.3f} ms/batch")
+    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / PROFILE_BATCHES / 1e3:9.3f} ms/batch  "
+              f"{100 * us / total:5.1f}%  {name}")
+
+
+def where_the_time_goes(seed: int) -> None:
+    """Phase 6: the serving and scoring chains, kernel and plain, under
+    torch.profiler."""
+    from semanticsegmentationactivelearning_tpu_torch.inference import (
+        make_predict_fn)
+    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+        make_score_step)
+    model = score_model(seed, FINAL_SCALE)
+    lut = torch.arange(256, dtype=torch.uint8, device="cuda")
+    predict = make_predict_fn(model, lut, H, W, 3, torch.device("cuda"))
+    rng = np.random.default_rng(seed + 5)
+    serve_stack = torch.from_numpy(
+        rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).cuda()
+    score_stack = torch.from_numpy(
+        rng.integers(0, 256, (SN, SH, SW, 3), dtype=np.uint8)).cuda()
+
+    def scored(fused):
+        step = make_score_step(model, CLASSES, "entropy", fused=fused)
+        return lambda stack: step({"image": stack.float().div_(255.0)})
+
+    with torch.inference_mode():
+        for label, fn, x in (
+                ("serve kernel chain", predict, serve_stack),
+                ("serve plain chain",
+                 lambda s: plain_predict(model, lut, s), serve_stack),
+                ("score kernel chain", scored(True), score_stack),
+                ("score plain chain", scored(False), score_stack)):
+            batch = tuple(x.shape[:3])
+            profile_chain(f"{label} (batch {batch[0]}, {batch[1]}x"
+                          f"{batch[2]})", fn, x)
 
 
 def main(argv=None) -> int:
@@ -368,23 +706,37 @@ def main(argv=None) -> int:
 
     # 4. the serving path
     launches, kernel_ms, plain_ms, served = serve(state, args.seed)
-    try:
-        import PIL  # noqa: F401
-    except ImportError:
-        print("cli: PIL is not installed; the CLI phase is skipped")
-    else:
-        run_cli(served, args.seed)
+    launches = dict(zip(("front", "mid", "tail"), launches))
+    run_cli(served, args.seed)
+    del served, model
+    torch.cuda.empty_cache()
 
-    jax_side = ("jax", "flax", "semanticsegmentationactivelearning_tpu")
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in jax_side)
+    # 5. the scoring path
+    per_kernel.update(check_score_kernels(args.seed))
+    score_launches, score_ms, score_plain_ms = score_pool(args.seed)
+    launches.update(score_launches)
+
+    # 6. where the time goes
+    torch.cuda.empty_cache()
+    where_the_time_goes(args.seed)
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
         raise AssertionError(f"imported JAX or the JAX package: {leaked}")
 
-    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
-                    replaces=REPLACES[k], launches=n, **per_kernel[k])
-               for k, n in zip(("front", "mid", "tail"), launches)]
+    kernels = []
+    for k, (source, replaces) in KERNELS.items():
+        r = per_kernel[k]
+        kernels.append(dict(
+            name=k, route="cuda", source=source, replaces=replaces,
+            launches=launches[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None))
     print(f"chain: kernel {kernel_ms:.3f} ms/batch, plain {plain_ms:.3f} "
           f"ms/batch (batch {N}, {H}x{W}, ENet-{CLASSES}; {smi})")
+    print(f"score: kernel {score_ms:.3f} ms/batch, plain {score_plain_ms:.3f}"
+          f" ms/batch (batch {SN}, {SH}x{SW}, ENet-{CLASSES}; {smi})")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,12 +3,14 @@ prediction PNGs (the counterpart of the JAX package's root
 ``inference.py``).
 
     python -m semanticsegmentationactivelearning_tpu_torch.inference \\
-        -c CKPT -d DATA_DIR -o OUT -t cityscapes [-b BATCH] [--color]
+        -c CKPT -d DATA_DIR -o OUT -t cityscapes [-b BATCH] [--color] \\
+        [--device {cuda,cpu}]
 
 Reads every ``.tfrecord`` under the data directory (or its test/
 subdirectory), serves each batch through :func:`make_predict_fn` on
-the first CUDA device (the hand-written kernel chain; on a host
-without CUDA, the plain PyTorch chain on the CPU), and writes
+the first CUDA device (the hand-written kernel chain; without a CUDA
+device it raises) or, with ``--device cpu``, on the CPU (the plain
+PyTorch chain), and writes
 ``{output}/{id}.png`` with the dataset-id reverse embedding (default)
 or the colormap (``--color``). ``-c`` takes a port checkpoint or one
 written by the JAX package.
@@ -67,6 +69,18 @@ def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
     return predict
 
 
+def _serving_device(name: str) -> torch.device:
+    """The device ``--device`` names. ``cuda`` (the default) needs a
+    CUDA device and raises without one: the CPU serves only when the
+    caller asks for it."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda: no CUDA device is available (torch "
+            f"{torch.__version__}, CUDA build {torch.version.cuda}); pass "
+            "--device cpu to serve with the plain PyTorch chain on the CPU")
+    return torch.device(name)
+
+
 def _record_files(data_dir: str, dataset) -> list:
     def tfrecords(d):
         return sorted(os.path.join(d, f) for f in os.listdir(d)
@@ -107,13 +121,12 @@ def main(args) -> int:
     for flag, message in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(message)
-    # the JAX package's framework-free record reader, dataset tables and
-    # PNG writer (the loader and the writer pull in PIL); imported here
-    # so that make_predict_fn's import path holds none of them
-    from semanticsegmentationactivelearning_tpu import datasets
-    from semanticsegmentationactivelearning_tpu.data import (example,
-                                                             loader,
-                                                             png_writer)
+    device = _serving_device(args.device)
+    # the record reader, dataset tables and PNG writer (the loader and
+    # the writer pull in PIL); imported here so that make_predict_fn's
+    # import path holds none of them
+    from . import datasets
+    from .data import example, loader, png_writer
     datasets_by_name = {"cityscapes": datasets.Cityscapes,
                         "freiburg": datasets.Freiburg,
                         "vistas": datasets.Vistas}
@@ -149,7 +162,6 @@ def main(args) -> int:
     lut = dataset.colormap if args.color else dataset.embedding_reversed
     if np.ndim(lut) != 1 and not args.color:
         lut = dataset.colormap  # color-coded datasets reverse-embed to it
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     if device.type == "cuda":
         logger.info("Serving on %s (kernel chain)",
                     torch.cuda.get_device_name(device))
@@ -158,7 +170,7 @@ def main(args) -> int:
                         "not ported yet (ROADMAP.md Queue 1 item 10)",
                         torch.cuda.device_count())
     else:
-        logger.info("No CUDA device: serving on the CPU (plain chain)")
+        logger.info("Serving on the CPU (plain chain), as --device cpu asks")
     predict = make_predict_fn(model, torch.as_tensor(np.asarray(lut)),
                               height, width, rec_loader.channels, device)
 
@@ -211,6 +223,11 @@ def parse_arguments(argv=None):
     parser.add_argument("-b", "--batch-size", type=int, default=1,
                         dest="batch_size",
                         help="Images per predict call.")
+    parser.add_argument("--device", choices=("cuda", "cpu"),
+                        default="cuda", dest="device",
+                        help="Serve on the first CUDA device (the kernel "
+                             "chain; raises without one) or on the CPU "
+                             "(the plain chain).")
     parser.add_argument("--view", action="store_true", default=False,
                         dest="view",
                         help="Interactive result viewer (not ported yet).")

@@ -15,10 +15,16 @@ Stage layout as in the JAX package:
 
 Submodules carry the flax names (``Initial``, ``Bottleneck1_0``, ...,
 ``Final``). The seams the kernels plug into are ``forward(...,
-return_stage1=True)``, :meth:`ENet.forward_stage23` and
-:meth:`ENet.forward_tail`; :meth:`ENet.fused_predict` chains the three
-kernels of ``ops/kernels``. The multiscale loss heads are training-only
-and are not ported yet (ROADMAP Queue 1 item 5).
+return_stage1=True)``, ``forward(..., return_stage4=True)``,
+``forward(..., return_pre_logits=True)``, :meth:`ENet.forward_stage23`,
+:meth:`ENet.forward_from_stage1`, :meth:`ENet.forward_stage4`,
+:meth:`ENet.decode_from_stage4` and :meth:`ENet.forward_tail`.
+:meth:`ENet.fused_predict` chains the front, mid and tail-predict
+kernels of ``ops/kernels``; :meth:`ENet.fused_score` routes the
+acquisition score through the front, mid and one of the three score
+kernels. The multiscale loss heads and ``return_embedding`` belong to
+the training and core-set slices and are not ported yet (ROADMAP Queue
+1 items 5 and 9).
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ DILATED_SPEC = ((1, False), (2, False), (1, True), (4, False),
 class ENet(nn.Module):
     # input H and W must divide this (three pool/unpool levels)
     input_divisor = 8
+    # fused_score computes the acquisition score without full-resolution
+    # logits (train/steps.make_score_step takes it)
+    supports_fused_scoring = True
 
     def __init__(self, num_classes: int):
         super().__init__()
@@ -98,16 +107,27 @@ class ENet(nn.Module):
 
     # -- forward and seams ---------------------------------------------
 
-    def forward(self, x: torch.Tensor, return_stage1: bool = False):
+    def forward(self, x: torch.Tensor, return_stage1: bool = False,
+                return_stage4: bool = False,
+                return_pre_logits: bool = False):
         """``x`` NHWC float -> float32 logits ``[N, H, W, classes]``;
-        with ``return_stage1`` the stage-1 features and switches."""
+        with ``return_stage1`` the stage-1 features and switches, with
+        ``return_stage4`` the stage-4 features and the B1_0 switches
+        (the decoder score kernel's inputs), with ``return_pre_logits``
+        the B5_1 output that the Final layer takes."""
         h, switches1 = self.Bottleneck1_0(self.Initial(x))
         for block in self.blocks(self.stage1):
             h = block(h)
         if return_stage1:
             return h, switches1
         y, switches2 = self.forward_stage23(h)
-        return self.forward_tail(y, switches2, switches1)
+        f4 = self.forward_stage4(y, switches2)
+        if return_stage4:
+            return f4, switches1
+        pre = self.decode_from_stage4(f4, switches1)
+        if return_pre_logits:
+            return pre
+        return self.Final(pre)
 
     def forward_stage23(self, x1: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,15 +137,33 @@ class ENet(nn.Module):
             h = block(h)
         return h, switches2
 
+    def forward_from_stage1(self, x1: torch.Tensor) -> torch.Tensor:
+        """Stages 2 through 4: stage-1 features -> stage-4 features."""
+        y, switches2 = self.forward_stage23(x1)
+        return self.forward_stage4(y, switches2)
+
+    def forward_stage4(self, y: torch.Tensor, switches2: torch.Tensor
+                       ) -> torch.Tensor:
+        """Stage 4: stage-3 features and the B2_0 switches (int8,
+        ``[N, h, w*64]``) -> stage-4 features ``[N, 2h, 2w, 64]``."""
+        h = self.Bottleneck4_0(y, switches2)
+        for block in self.blocks(self.stage4):
+            h = block(h)
+        return h
+
+    def decode_from_stage4(self, f4: torch.Tensor, switches1: torch.Tensor
+                           ) -> torch.Tensor:
+        """Stage 5: stage-4 features and the B1_0 switches (int8,
+        ``[N, h, w*16]``) -> the pre-logits ``[N, 2h, 2w, 16]``."""
+        h = self.Bottleneck5_0(f4, switches1)
+        return self.Bottleneck5_1(h)
+
     def forward_tail(self, y: torch.Tensor, switches2: torch.Tensor,
                      switches1: torch.Tensor) -> torch.Tensor:
         """Stages 4 and 5 and Final: stage-3 features and both switch
         tensors (int8, ``[N, h, w*C]``) -> logits."""
-        h = self.Bottleneck4_0(y, switches2)
-        for block in self.blocks(self.stage4):
-            h = block(h)
-        h = self.Bottleneck5_0(h, switches1)
-        return self.Final(self.Bottleneck5_1(h))
+        f4 = self.forward_stage4(y, switches2)
+        return self.Final(self.decode_from_stage4(f4, switches1))
 
     @torch.no_grad()
     def fused_predict(self, image: torch.Tensor) -> torch.Tensor:
@@ -145,6 +183,64 @@ class ENet(nn.Module):
         y, sw2 = mid.fused_mid_stage23(x1, self)
         labels = tail.fused_tail_predict(y, sw2, mask1, self)
         return labels.to(torch.int32)
+
+    @torch.no_grad()
+    def fused_score(self, image: torch.Tensor, measure: str,
+                    fuse_decoder: bool = True, fuse_front: bool = True,
+                    fuse_mid: bool = True, fuse_tail: bool = True
+                    ) -> torch.Tensor:
+        """Per-image mean confidence float32 ``[N]`` without
+        full-resolution logits in memory on the kernel routes: the AL
+        pool-ranking hot loop (reference active_learning.py:229-263),
+        routed as the JAX ``ENet.fused_score`` routes it. On a CUDA
+        tensor each route runs the hand-written kernels, on a CPU tensor
+        their plain versions.
+
+        Entropy with ``fuse_decoder``: on 3-channel inputs at least 24
+        rows tall the front kernel, then the mid kernel (or the plain
+        stages 2-3 without ``fuse_mid``), then the tail score kernel
+        where H/8 >= 6 and ``fuse_tail``, else plain stage 4 and the
+        decoder score kernel on the front's mask. Other inputs take the
+        plain encoder to stage 4 and the decoder score kernel on the
+        switches. Entropy without ``fuse_decoder``: the plain forward to
+        the pre-logits and the deconv score kernel. Other measures:
+        ``acquisition.chunked_deconv_mean_confidence``. H and W must be
+        multiples of 8."""
+        # imported here: ops/kernels/mid.py imports this module
+        from ..ops import acquisition
+        from ..ops.kernels import (deconv_score, decoder, front, mid,
+                                   packing, tail)
+        n, h, w, c = image.shape
+        if h % 8 or w % 8:
+            raise ValueError(f"fused_score needs H, W divisible by 8, got "
+                             f"{tuple(image.shape)}")
+        # the JAX kernels' halo windows set these limits; the port keeps
+        # its routes
+        fuse_tail = fuse_tail and h // 8 >= 6
+        fuse_front = fuse_front and h >= 24 and c == 3
+        if measure == "entropy" and fuse_decoder:
+            if not fuse_front:
+                f4, switches1 = self(image, return_stage4=True)
+                return decoder.fused_decoder_entropy_score(f4, switches1,
+                                                           self)
+            x1, mask1 = front.fused_front_stage1(image, self)
+            if fuse_mid:
+                y, sw2 = mid.fused_mid_stage23(x1, self)
+            else:
+                y, sw2 = mid.mid_stage23_plain(x1, self)
+            if fuse_tail:
+                return tail.fused_tail_entropy_score(y, sw2, mask1, self)
+            f4 = self.forward_stage4(y, sw2.reshape(n, h // 8, w // 8 * 64))
+            return decoder.fused_decoder_entropy_score(f4, None, self,
+                                                       mask=mask1)
+        features = self(image, return_pre_logits=True)
+        kernel = self.packed("final", image.device,
+                             lambda m: packing.deconv_hwio(m.Final.deconv))
+        if measure == "entropy":
+            return deconv_score.fused_deconv_entropy_score(
+                features, kernel, self.num_classes)
+        return acquisition.chunked_deconv_mean_confidence(
+            features, kernel, measure, self.num_classes)
 
 
 def _to_device(pack, device):

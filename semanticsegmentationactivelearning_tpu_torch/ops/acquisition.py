@@ -1,0 +1,118 @@
+"""Acquisition / confidence measures for active learning, the PyTorch
+port of ``semanticsegmentationactivelearning_tpu/ops/acquisition.py``.
+
+The reference's pseudo-annotation subgraph (active_learning.py:229-269):
+softmax over the logits, then one of
+
+- ``entropy``:    1 - H(p)/log(C)   (normalized to [0,1], class-count
+                  independent, active_learning.py:240-251)
+- ``margin``:     p_top1 - p_top2   (252-255)
+- ``confidence``: max_c p_c         (256-258)
+
+plus the per-image mean used as the acquisition score (261-263) and the
+pixel-level threshold mask for pseudo-labelling (265-269). Logits are
+NHWC ``[B, H, W, C]``, as in the JAX package.
+
+All of it is plain PyTorch. The entropy measure's hot path is the score
+kernels of ``ops/kernels`` (tail, decoder, deconv); the other measures
+take :func:`chunked_deconv_mean_confidence`, as the JAX package leaves
+them to XLA. The Monte-Carlo measure (BALD) and ICNet's
+``chunked_upsample_mean_confidence`` are not ported yet (ROADMAP.md
+Queue 1 items 8 and 9).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# Lowest representable float32 (reference: active_learning.py:40)
+EPSILON = float(np.finfo(np.float32).tiny)
+
+MEASURES = ("entropy", "margin", "confidence")
+
+
+def confidence_map(logits: torch.Tensor, measure: str,
+                   num_classes: int) -> torch.Tensor:
+    """Per-pixel confidence ``[B,H,W]`` from logits ``[B,H,W,C]``."""
+    prob = torch.softmax(logits.float(), dim=-1)
+    if measure == "entropy":
+        entropy = -torch.sum(prob * torch.log(prob + EPSILON), dim=-1)
+        return 1.0 - entropy / math.log(num_classes)
+    if measure == "margin":
+        top2 = torch.topk(prob, 2, dim=-1).values
+        return top2[..., 0] - top2[..., 1]
+    if measure == "confidence":
+        return prob.amax(dim=-1)
+    raise NotImplementedError(
+        f"Uncertainty function {measure!r} not implemented.")
+
+
+def mean_confidence(logits: torch.Tensor, measure: str,
+                    num_classes: int) -> torch.Tensor:
+    """Per-image mean confidence ``[B]``, the pool acquisition score
+    (active_learning.py:261-263)."""
+    return confidence_map(logits, measure, num_classes).mean(dim=(1, 2))
+
+
+def conv_transpose_same(x: torch.Tensor, kernel: torch.Tensor
+                        ) -> torch.Tensor:
+    """``lax.conv_transpose(x, kernel, (2, 2), "SAME")`` on NHWC ``x``
+    with the flax kernel ``[3, 3, cin, cout]``: the spatially flipped
+    kernel through ``conv_transpose2d(stride=2)``, cropped to 2H x 2W."""
+    _, h, w, _ = x.shape
+    weight = kernel.permute(2, 3, 0, 1).flip(2, 3).to(x.dtype)
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, stride=2)
+    return out[:, :, :2 * h, :2 * w].permute(0, 2, 3, 1)
+
+
+def chunked_deconv_mean_confidence(features: torch.Tensor,
+                                   kernel: torch.Tensor, measure: str,
+                                   num_classes: int,
+                                   chunk: int = 32) -> torch.Tensor:
+    """The scoring tail as plain PyTorch: 3x3/s2 transposed conv (the
+    ENet ``Final`` layer) -> softmax -> confidence -> per-image mean,
+    over row chunks of the half-resolution features, so that only a
+    ``[N, 2*chunk+4, W, C]`` logits window is live at a time.
+
+    Chunks carry a one-row halo on each side: a stride-2 kernel-3
+    transposed conv's output row ``y`` draws from input rows
+    ``floor((y-1)/2)..floor((y+1)/2)``, so after running SAME on the
+    haloed slice the two outermost output rows on each side are invalid
+    and dropped.
+
+    :param features: ``[N, H2, W2, cin]`` pre-Final features (H = 2*H2)
+    :param kernel:   ``[3, 3, cin, C]`` flax ConvTranspose kernel
+    :returns: ``[N]`` mean confidence (float32)
+    """
+    n, h2, w2, _cin = features.shape
+    if h2 % chunk != 0:
+        # one chunk if the height doesn't divide evenly
+        chunk = h2
+    # zero-pad one feature row top and bottom so halo slices never clamp
+    padded = F.pad(features, (0, 0, 0, 0, 1, 1))
+    sums = torch.zeros(n, dtype=torch.float32, device=features.device)
+    for i in range(h2 // chunk):
+        rows = padded[:, i * chunk:i * chunk + chunk + 2]
+        logits = conv_transpose_same(rows, kernel)[:, 2:-2].float()
+        sums += confidence_map(logits, measure, num_classes).sum(dim=(1, 2))
+    return sums / float(h2 * 2 * w2 * 2)
+
+
+def pseudo_annotate(logits: torch.Tensor, measure: str, num_classes: int,
+                    threshold: float):
+    """Pseudo-label + high-confidence mask from a no-dropout forward
+    (active_learning.py:231-269).
+
+    :returns: (pseudo_label int32 ``[B,H,W]``,
+               pseudo_mask float32 ``[B,H,W]``,
+               mean_conf float32 ``[B]``)
+    """
+    logits = logits.detach()
+    pseudo_label = logits.argmax(dim=-1).to(torch.int32)
+    conf = confidence_map(logits, measure, num_classes)
+    pseudo_mask = (conf >= threshold).float()
+    return pseudo_label, pseudo_mask, conf.mean(dim=(1, 2))

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, ``build/kernels/<hash>/
 libssal_torch_kernels.so`` beside the package, keyed by a hash of the
 sources and flags; ``ctypes`` loads it. The first call of
@@ -30,7 +31,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE.parent / "build" / "kernels"
 LIB_NAME = "libssal_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> (argtypes, restype); every launch takes the stream last
@@ -45,6 +46,13 @@ SIGNATURES = {
     "ssal_mid_conv": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssal_tail_pack_size": ([_I], _I),
     "ssal_tail_predict": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_tail_partials": ([_I, _I], _I),
+    "ssal_tail_score": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_decoder_pack_size": ([_I], _I),
+    "ssal_decoder_partials": ([_I, _I], _I),
+    "ssal_decoder_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_deconv_partials": ([_I, _I], _I),
+    "ssal_deconv_score": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
 }
 
 
@@ -84,16 +92,28 @@ def build() -> Build:
     if lib.exists():
         return Build(lib, 0.0, "")
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        cus = [s for s in sources() if s.suffix == ".cu"]
+        objs = [Path(tmp) / (s.stem + ".o") for s in cus]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cus, objs)]
+        log = [p.communicate()[0] for p in procs]  # wait for every one
+        for src, p, out in zip(cus, procs, log):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
         part = Path(tmp) / LIB_NAME
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(part),
-               *(str(s) for s in sources() if s.suffix == ".cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(part), *map(str, objs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+            raise RuntimeError("nvcc link failed:\n" + res.stdout
+                               + res.stderr)
         os.replace(part, lib)
-    return Build(lib, time.perf_counter() - t0, res.stdout + res.stderr)
+    return Build(lib, time.perf_counter() - t0, "".join(log))
 
 
 @functools.lru_cache(maxsize=None)

@@ -52,6 +52,13 @@ def upsample(blk) -> List[torch.Tensor]:
             + [hwio(blk.res_conv), blk.res_prelu.alpha])
 
 
+def stage5(model) -> List[torch.Tensor]:
+    """ENet's B5_0, B5_1 and the Final kernel (``csrc/decoder.cuh``
+    ``take_stage5``): the tail of every tail and decoder pack."""
+    return (upsample(model.Bottleneck5_0) + bottleneck(model.Bottleneck5_1)
+            + [deconv_hwio(model.Final.deconv)])
+
+
 def flat(parts: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat([p.detach().reshape(-1).float() for p in parts]) \
         .contiguous()

@@ -8,7 +8,9 @@ the JAX package, so it also runs where only PyTorch is installed:
 Each kernel is held against its plain PyTorch version on the same
 inputs, with TF32 off on both sides: features rtol = atol = 1e-4;
 switches exact where the pooled window's top-2 gap exceeds 1e-4;
-labels exact where the top-2 logit margin exceeds 1e-3."""
+labels exact where the top-2 logit margin exceeds 1e-3; per-image
+scores |difference| <= 1e-4 (means over the pixels, summed in another
+order)."""
 
 import numpy as np
 import pytest
@@ -19,8 +21,11 @@ from semanticsegmentationactivelearning_tpu_torch.data.device_prefetch \
 from semanticsegmentationactivelearning_tpu_torch.inference import (
     make_predict_fn)
 from semanticsegmentationactivelearning_tpu_torch.models import ENet
+from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
 from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
-    front, mid, tail)
+    deconv_score, decoder, front, mid, packing, tail)
+from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+    make_score_step)
 
 pytestmark = pytest.mark.cuda
 C = 19
@@ -145,3 +150,85 @@ def test_serving_through_device_prefetch(model):
         want = model.fused_predict(
             torch.from_numpy(src["stack"]).cuda().float() / 255.0)
         assert torch.equal(out.long(), want[:, :60, :90].long())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_score_kernels_match_plain_versions(model, shape):
+    """The tail, decoder and deconv score kernels on the plain chain's
+    activations: within 1e-4 of their plain versions, and bit-equal
+    from one run to the next (no atomics)."""
+    image = _image(shape, 5)
+    n, h, w, _ = shape
+    with torch.no_grad():
+        x1, m1 = front.front_stage1_plain(image, model)
+        y, sw2 = mid.mid_stage23_plain(x1, model)
+        f4 = model.forward_stage4(y, sw2.reshape(n, h // 8, w // 8 * 64))
+        pre = model.decode_from_stage4(f4, tail.mask_to_switches(m1))
+        kernel = packing.deconv_hwio(model.Final.deconv).contiguous()
+        cases = [
+            (lambda: tail.fused_tail_entropy_score(y, sw2, m1, model),
+             tail.tail_score_plain(y, sw2, m1, model)),
+            (lambda: decoder.fused_decoder_entropy_score(f4, None, model,
+                                                         mask=m1),
+             decoder.decoder_score_plain(f4, m1, model)),
+            (lambda: deconv_score.fused_deconv_entropy_score(pre, kernel, C),
+             deconv_score.deconv_score_plain(pre, kernel, C)),
+        ]
+        for run, want in cases:
+            got = run()
+            assert got.dtype == torch.float32 and got.shape == (n,)
+            assert (got - want).abs().max().item() <= 1e-4
+            assert torch.equal(got, run())
+
+
+def test_decoder_takes_switches_or_mask(model):
+    image = _image((2, 16, 32, 3), 6)
+    with torch.no_grad():
+        f4, switches1 = model(image, return_stage4=True)
+        by_sw = decoder.fused_decoder_entropy_score(f4, switches1, model)
+        by_mask = decoder.fused_decoder_entropy_score(
+            f4, None, model, mask=front.switches_to_mask(switches1))
+    assert torch.equal(by_sw, by_mask)
+
+
+# (fused_score flags, image shape, the wrapper the route launches)
+SCORE_ROUTES = [
+    ({}, (2, 48, 64, 3), "tail"),
+    ({}, (2, 40, 64, 3), "decoder"),          # H/8 < 6
+    (dict(fuse_tail=False), (2, 48, 64, 3), "decoder"),
+    ({}, (2, 16, 32, 3), "decoder"),          # H < 24: plain encoder
+    (dict(fuse_decoder=False), (2, 48, 64, 3), "deconv"),
+]
+
+
+@pytest.mark.parametrize("flags, shape, route", SCORE_ROUTES,
+                         ids=lambda v: str(v))
+def test_fused_score_routes_count_their_launches(model, flags, shape,
+                                                 route):
+    image = _image(shape, 7)
+    wrappers = {"tail": tail.fused_tail_entropy_score,
+                "decoder": decoder.fused_decoder_entropy_score,
+                "deconv": deconv_score.fused_deconv_entropy_score}
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    got = model.fused_score(image, "entropy", **flags)
+    torch.cuda.synchronize()
+    rose = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    assert rose == {k: int(k == route) for k in wrappers}
+    with torch.no_grad():
+        want = acquisition.mean_confidence(model(image), "entropy", C)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_score_step_through_device_prefetch(model):
+    score = make_score_step(model, C, "entropy")
+    plain = make_score_step(model, C, "entropy", fused=False)
+    rng = np.random.default_rng(8)
+    host = [{"stack": rng.integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)}
+            for _ in range(2)]
+    launches = tail.fused_tail_entropy_score.launches
+    for b in device_prefetch(iter(host), "cuda"):
+        image = b["stack"].float() / 255.0
+        got, want = score({"image": image}), plain({"image": image})
+        assert got.is_cuda and got.shape == (2,)
+        assert (got - want).abs().max().item() <= 1e-4
+    assert tail.fused_tail_entropy_score.launches == launches + 2

@@ -142,7 +142,7 @@ def test_cli_on_a_jax_checkpoint(jax_state, jax_ckpt, records, tmp_path):
         [sys.executable, "-m",
          "semanticsegmentationactivelearning_tpu_torch.inference",
          "-c", str(jax_ckpt), "-d", str(rec_dir), "-o", str(out),
-         "-t", "cityscapes", "-b", "2"],
+         "-t", "cityscapes", "-b", "2", "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "Model: ENet" in res.stderr
@@ -167,9 +167,22 @@ def test_cli_on_a_jax_checkpoint(jax_state, jax_ckpt, records, tmp_path):
 def test_deferred_flags_name_their_roadmap_item(flag, tmp_path):
     args = inference.parse_arguments(
         ["-c", "x", "-d", str(tmp_path), "-o", str(tmp_path / "o"),
-         "-t", "cityscapes", *flag])
+         "-t", "cityscapes", "--device", "cpu", *flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inference.main(args)
+
+
+def test_cli_without_device_cpu_needs_cuda(records, tmp_path, monkeypatch):
+    """``--device`` defaults to ``cuda``: with no CUDA device the CLI
+    raises and names the flag instead of serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = inference.parse_arguments(
+        ["-c", "x", "-d", str(records[0]), "-o", str(tmp_path / "o"),
+         "-t", "cityscapes"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        inference.main(args)
+    assert not (tmp_path / "o").exists()
 
 
 def test_device_prefetch_on_cpu():
