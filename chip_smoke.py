@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's ENet serving and pool-scoring paths
-on one NVIDIA GPU.
+and ICNet's pool-scoring path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -37,6 +37,20 @@ Phases (any failure raises, so the exit code is not 0):
      device-busy share of that window (the union of the CUDA kernel and
      copy intervals over the wall time) and the device time per batch of
      each kernel name, largest first.
+  7. ICNet pool scoring, at its conf's shape (ICNet-19, batch 8,
+     1024x2048, conf/icnet_cityscapes.json), with seeded weights:
+     a. the four ICNet kernels (front, front+stem, CFF2 + head, head)
+        against their plain versions on the same inputs: f1 and stem1 to
+        1e-3 of their maximum, x_half to 1e-5, scores to 1e-4 per image
+        and bit-equal from run to run, with the classifier x5, x1, x25
+        and x1000; each one's time beside its plain version's;
+     b. the pool: 6 uint8 batches through device_prefetch, /255 and
+        make_score_step(icnet, 19, "entropy"), with the counters zeroed
+        before (front+stem and CFF2 + head once a batch); the scores
+        against the plain chain's; then one batch each through the
+        fuse_cff2=False and fuse_stem=False routes;
+     c. the phase-6 breakdown of ICNet's scoring chain, kernel and
+        plain.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}. Neither this process nor its child
 processes (the record writer and the CLI) import JAX or the JAX package;
@@ -67,6 +81,14 @@ N, H, W, CLASSES = 2, 1024, 2048, 19
 # (conf/enet_cityscapes_active_learning.json), fp32
 SN, SH, SW = 8, 512, 1024
 POOL_BATCHES = 6
+# ICNet's scoring shape: batch_size 8 at 1024x2048
+# (conf/icnet_cityscapes.json), fp32
+IN, IH, IW = 8, 1024, 2048
+# The seeded classifier alone gives scores near 0.05 at this shape; x5
+# moves them to about 0.5, x1000 near 1. Phase 7a also holds x25, the
+# scale of ENet's Final kernel in phase 5a.
+ICNET_CLS_SCALE = 5.0
+ICNET_SCALES = (ICNET_CLS_SCALE, 1.0, 25.0, 1000.0)  # phase 7a's classifiers
 # The recipe alone gives logits with a standard deviation of about 0.04,
 # and only ~91% of pixels clear the 1e-3 label margin; a trained
 # classifier spreads its logits over units. Scaling the Final kernel by
@@ -88,6 +110,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "tail_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2720"),
     "decoder_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:687"),
     "deconv_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:344"),
+    "icnet_front_stem": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3346"),
+    "icnet_front": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3189"),
+    "icnet_cff2_head_score": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:3604"),
+    "icnet_head8_score": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:198"),
 }
 # appended to each child script: fail if it imported JAX or the JAX
 # package
@@ -100,20 +126,27 @@ LEAK_CHECK = (
     "    raise SystemExit(f'imported JAX or the JAX package: {_bad}')\n")
 
 
-def seeded_state_dict(model, seed: int,
-                      final_scale: float = FINAL_SCALE) -> dict:
+def seeded_state_dict(model, seed: int, final_scale: float = FINAL_SCALE,
+                      name: str = "ENet") -> dict:
     """Glorot-uniform conv weights, BN scale 1 / bias 0 with running
     mean |N(0, 0.3)| and var 1 + |N(0, 0.3)|, PReLU 0.25 (the noised-BN
-    recipe of the JAX package's kernel tests), from numpy; the Final
-    kernel is scaled by ``final_scale``."""
+    recipe of the JAX package's kernel tests), from numpy; the output
+    layer (ENet's Final kernel, ICNet's classifier) is scaled by
+    ``final_scale``. For ``name`` "ICNet" the running means are N(0, 0.1)
+    instead: |N| means leave its ReLU outputs all zero after a few
+    blocks."""
     rng = np.random.default_rng(seed)
+    state = model.state_dict()
+    icnet = name == "ICNet"
     out = {}
-    for key, v in model.state_dict().items():
+    for key, v in state.items():
         shape = tuple(v.shape)
         if key.endswith(".weight") and len(shape) == 4:
             rf = shape[2] * shape[3]
             lim = np.sqrt(6.0 / (rf * (shape[0] + shape[1])))
             a = rng.uniform(-lim, lim, size=shape)
+        elif key.endswith("running_mean") and icnet:
+            a = rng.normal(size=shape, scale=0.1)
         elif key.endswith("running_mean"):
             a = np.abs(rng.normal(size=shape, scale=0.3))
         elif key.endswith("running_var"):
@@ -124,7 +157,7 @@ def seeded_state_dict(model, seed: int,
             a = np.ones(shape)
         else:
             a = np.zeros(shape)
-        if key == "Final.deconv.weight":
+        if key in ("Final.deconv.weight", "Classifier.weight"):
             a = a * final_scale
         out[key] = torch.tensor(a, dtype=torch.float32)
     return out
@@ -145,31 +178,39 @@ def cuda_ms(fn) -> float:
     return float(np.median(times))
 
 
-def roofline(fn, args, outs, extra_flops: float = 0.0) -> dict:
-    """The least time the card could take for ``fn(*args)``: the larger
-    of its operations over the fp32 peak and of its bytes (each input
-    read once, each output in ``outs`` written once) over the memory
-    rate. Operations are the convolution and matmul FLOPs of ``fn``
-    run on meta copies of ``args`` (its plain version) plus
-    ``extra_flops``; a model in ``args`` counts as all of its weights
-    (1.4 MB for ENet-19, more than any one kernel reads)."""
-    meta, nbytes = [], 0
+def count_flops(fn, args) -> float:
+    """The convolution and matmul FLOPs of ``fn(*args)`` (a plain
+    version), run on meta copies of ``args``."""
+    meta = []
     for a in args:
         if isinstance(a, torch.Tensor):
-            nbytes += a.numel() * a.element_size()
             meta.append(torch.empty_like(a, device="meta"))
         elif isinstance(a, torch.nn.Module):
-            nbytes += sum(p.numel() * p.element_size()
-                          for p in a.parameters())
             m = copy.deepcopy(a).to("meta")
             m.clear_packs()
             meta.append(m)
         else:
             meta.append(a)
-    nbytes += sum(o.numel() * o.element_size() for o in outs)
     with torch.no_grad(), FlopCounterMode(display=False) as fc:
         fn(*meta)
-    flops = fc.get_total_flops() + extra_flops
+    return float(fc.get_total_flops())
+
+
+def roofline(args, outs, flops: float) -> dict:
+    """The least time the card could take for ``flops`` operations on
+    ``args``: the larger of the operations over the fp32 peak and of the
+    bytes (each input read once, each output in ``outs`` written once)
+    over the memory rate. A model in ``args`` counts as all of its
+    weights (1.4 MB for ENet-19, 27 MB for ICNet-19, more than any one
+    kernel reads)."""
+    nbytes = 0
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            nbytes += a.numel() * a.element_size()
+        elif isinstance(a, torch.nn.Module):
+            nbytes += sum(p.numel() * p.element_size()
+                          for p in a.parameters())
+    nbytes += sum(o.numel() * o.element_size() for o in outs)
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -229,8 +270,8 @@ def check_kernels(model, seed: int) -> dict:
             max_abs_err=err,
             ms=cuda_ms(lambda: front.fused_front_stage1(image, model)),
             plain_ms=cuda_ms(lambda: front.front_stage1_plain(image, model)),
-            **roofline(front.front_stage1_plain, (image, model),
-                       (x1k, m1k)))
+            **roofline((image, model), (x1k, m1k), count_flops(
+                front.front_stage1_plain, (image, model))))
         # mid, on the plain front's output
         yp, sw2p = mid.mid_stage23_plain(x1p, model)
         yk, sw2k = mid.fused_mid_stage23(x1p, model)
@@ -249,7 +290,8 @@ def check_kernels(model, seed: int) -> dict:
             max_abs_err=err,
             ms=cuda_ms(lambda: mid.fused_mid_stage23(x1p, model)),
             plain_ms=cuda_ms(lambda: mid.mid_stage23_plain(x1p, model)),
-            **roofline(mid.mid_stage23_plain, (x1p, model), (yk, sw2k)))
+            **roofline((x1p, model), (yk, sw2k),
+                       count_flops(mid.mid_stage23_plain, (x1p, model))))
         # tail, on the plain mid's and front's outputs
         lk = tail.fused_tail_predict(yp, sw2p, m1p, model)
         logits = model.forward_tail(yp, sw2p.reshape(N, H // 8, W // 8 * 64),
@@ -268,8 +310,8 @@ def check_kernels(model, seed: int) -> dict:
             ms=cuda_ms(lambda: tail.fused_tail_predict(yp, sw2p, m1p, model)),
             plain_ms=cuda_ms(
                 lambda: tail.tail_predict_plain(yp, sw2p, m1p, model)),
-            **roofline(tail.tail_predict_plain, (yp, sw2p, m1p, model),
-                       (lk,)))
+            **roofline((yp, sw2p, m1p, model), (lk,), count_flops(
+                tail.tail_predict_plain, (yp, sw2p, m1p, model))))
     for k, r in res.items():
         print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
               f"(batch {N}, {H}x{W})")
@@ -431,11 +473,11 @@ def run_cli(model, seed: int) -> None:
             raise AssertionError(f"inference CLI wrote {pngs}")
 
 
-def score_model(seed: int, final_scale: float):
+def score_model(seed: int, final_scale: float, name: str = "ENet"):
     from semanticsegmentationactivelearning_tpu_torch.models import (
         get_model)
-    model = get_model("ENet", CLASSES)
-    model.load_state_dict(seeded_state_dict(model, seed, final_scale))
+    model = get_model(name, CLASSES)
+    model.load_state_dict(seeded_state_dict(model, seed, final_scale, name))
     return model.cuda().eval()
 
 
@@ -487,8 +529,8 @@ def check_score_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
-                    r.update(roofline(plain, args, (got,), softmax_flops(
-                        SN, SH, SW, CLASSES)))
+                    r.update(roofline(args, (got,), count_flops(plain, args)
+                                      + softmax_flops(SN, SH, SW, CLASSES)))
         del x1, m1, y, sw2, f4, pre
     for k, r in res.items():
         print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -497,13 +539,37 @@ def check_score_kernels(seed: int) -> dict:
     return res
 
 
+def prefetched(host, stacks):
+    """The uint8 batches of ``host`` through device_prefetch; each stack
+    on the device is also appended to ``stacks``."""
+    from semanticsegmentationactivelearning_tpu_torch.data.device_prefetch \
+        import device_prefetch
+    for b in device_prefetch(iter(host), "cuda"):
+        stacks.append(b["stack"])
+        yield b["stack"]
+
+
+def timed_scores(step, stacks):
+    """``step({"image": stack / 255})`` on each uint8 stack, each timed
+    with CUDA events: (the scores, the median ms after WARMUP batches)."""
+    out = []
+    for stack in stacks:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores = step({"image": stack.float().div_(255.0)})
+        end.record()
+        out.append((scores, start, end))
+    torch.cuda.synchronize()
+    ms = float(np.median([s.elapsed_time(e) for _, s, e in out[WARMUP:]]))
+    return [sc for sc, _, _ in out], ms
+
+
 def score_pool(seed: int):
     """Phase 5b, the scoring path: uint8 batches through device_prefetch,
     /255 and make_score_step; then the decoder and deconv routes of
     fused_score once each. Returns (launch counts, kernel ms/batch,
     plain ms/batch)."""
-    from semanticsegmentationactivelearning_tpu_torch.data.device_prefetch \
-        import device_prefetch
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
         deconv_score, decoder, front, mid, tail)
     from semanticsegmentationactivelearning_tpu_torch.train.steps import (
@@ -515,19 +581,6 @@ def score_pool(seed: int):
     host = [{"stack": rng.integers(0, 256, (SN, SH, SW, 3), dtype=np.uint8)}
             for _ in range(POOL_BATCHES)]
 
-    def timed(step, stacks):
-        out = []
-        for stack in stacks:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            scores = step({"image": stack.float().div_(255.0)})
-            end.record()
-            out.append((scores, start, end))
-        torch.cuda.synchronize()
-        ms = float(np.median([s.elapsed_time(e) for _, s, e in out[WARMUP:]]))
-        return [sc for sc, _, _ in out], ms
-
     wrappers = (front.fused_front_stage1, mid.fused_mid_stage23,
                 tail.fused_tail_entropy_score, tail.fused_tail_predict,
                 decoder.fused_decoder_entropy_score,
@@ -535,13 +588,7 @@ def score_pool(seed: int):
     for fn in wrappers:
         fn.launches = 0
     stacks = []
-
-    def prefetched():
-        for b in device_prefetch(iter(host), "cuda"):
-            stacks.append(b["stack"])
-            yield b["stack"]
-
-    scores, kernel_ms = timed(score_step, prefetched())
+    scores, kernel_ms = timed_scores(score_step, prefetched(host, stacks))
     launches = [fn.launches for fn in wrappers]
     per_batch = [1, mid.LAUNCHES_PER_CALL, 1, 0, 0, 0]
     print(f"score: {len(scores)} batches, launches front/mid/tail score/"
@@ -550,7 +597,7 @@ def score_pool(seed: int):
     if launches != [p * POOL_BATCHES for p in per_batch]:
         raise AssertionError("the pool run did not go front -> mid -> tail "
                              "score once per batch")
-    plain, plain_ms = timed(plain_step, stacks)
+    plain, plain_ms = timed_scores(plain_step, stacks)
     err = max((k - p).abs().max().item() for k, p in zip(scores, plain))
     print(f"score: kernel chain {kernel_ms:.3f} ms/batch "
           f"({1e3 * SN / kernel_ms:.1f} images/s), plain chain "
@@ -637,8 +684,6 @@ def where_the_time_goes(seed: int) -> None:
     torch.profiler."""
     from semanticsegmentationactivelearning_tpu_torch.inference import (
         make_predict_fn)
-    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
-        make_score_step)
     model = score_model(seed, FINAL_SCALE)
     lut = torch.arange(256, dtype=torch.uint8, device="cuda")
     predict = make_predict_fn(model, lut, H, W, 3, torch.device("cuda"))
@@ -648,20 +693,221 @@ def where_the_time_goes(seed: int) -> None:
     score_stack = torch.from_numpy(
         rng.integers(0, 256, (SN, SH, SW, 3), dtype=np.uint8)).cuda()
 
-    def scored(fused):
-        step = make_score_step(model, CLASSES, "entropy", fused=fused)
-        return lambda stack: step({"image": stack.float().div_(255.0)})
-
     with torch.inference_mode():
         for label, fn, x in (
                 ("serve kernel chain", predict, serve_stack),
                 ("serve plain chain",
                  lambda s: plain_predict(model, lut, s), serve_stack),
-                ("score kernel chain", scored(True), score_stack),
-                ("score plain chain", scored(False), score_stack)):
+                ("score kernel chain", scored(model, True), score_stack),
+                ("score plain chain", scored(model, False), score_stack)):
             batch = tuple(x.shape[:3])
             profile_chain(f"{label} (batch {batch[0]}, {batch[1]}x"
                           f"{batch[2]})", fn, x)
+
+
+def scored(model, fused: bool):
+    """uint8 stack -> scores through make_score_step (kernel chain with
+    ``fused``, else the plain forward)."""
+    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+        make_score_step)
+    step = make_score_step(model, CLASSES, "entropy", fused=fused)
+    return lambda stack: step({"image": stack.float().div_(255.0)})
+
+
+# nonzero taps of the composed 8x upsample's weights (_HEAD8_W,
+# csrc/icnet_head.cu kHead8W) per output phase, averaged over the 8 phases
+HEAD8_TAPS = (2 + 2 + 3 + 3 + 3 + 3 + 2 + 2) / 8
+
+
+def icnet_head_flops(n: int, h8: int, w8: int, c: int) -> float:
+    """The head's least work: the classifier at 1/8 resolution; the
+    composed 8x upsample as two passes over the nonzero taps, one along
+    the columns at 1/8 row resolution, then one along the rows at full
+    resolution, a multiply and an add a tap; and the softmax entropy
+    (``softmax_flops``)."""
+    upsample = 2.0 * HEAD8_TAPS * (1.0 / 8 + 1.0)  # per full-res pixel
+    return (2.0 * n * h8 * w8 * 128 * c
+            + upsample * n * 64 * h8 * w8 * c
+            + softmax_flops(n, 8 * h8, 8 * w8, c))
+
+
+def check_icnet_kernels(seed: int) -> dict:
+    """Phase 7a: each ICNet kernel against its plain version on the same
+    inputs (the plain chain's activations of one seeded batch): the
+    fronts once, the heads at each classifier scale of ICNET_SCALES;
+    timed at the first."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_front, icnet_head)
+    rng = np.random.default_rng(seed + 6)
+    image = torch.from_numpy(rng.integers(0, 256, (IN, IH, IW, 3),
+                                          dtype=np.uint8)).cuda()
+    image = image.float() / 255.0
+    h8, w8 = IH // 8, IW // 8
+    res = {}
+    for scale in ICNET_SCALES:
+        model = score_model(seed, scale, "ICNet")
+        with torch.no_grad():
+            f1, x_half = icnet_front.icnet_front_plain(image, model)
+            stem1 = model.SharedStem.front(x_half)
+            if not res:  # the fronts do not read the classifier
+                # (name, kernel, plain version, its outputs' names and
+                # bounds: features to 1e-3 of their max, the resized
+                # image to 1e-5)
+                fronts = (
+                    ("icnet_front", icnet_front.fused_icnet_front,
+                     icnet_front.icnet_front_plain, (f1, x_half),
+                     (("f1", 1e-3 * f1.abs().max().item()),
+                      ("x_half", 1e-5))),
+                    ("icnet_front_stem", icnet_front.fused_icnet_front_stem,
+                     icnet_front.icnet_front_stem_plain, (f1, stem1),
+                     (("f1", 1e-3 * f1.abs().max().item()),
+                      ("stem1", 1e-3 * stem1.abs().max().item()))))
+                for name, fused, plain, want, bounds in fronts:
+                    got = fused(image, model)
+                    errs = []
+                    for g, w, (what, bound) in zip(got, want, bounds):
+                        err = (g - w).abs().max().item()
+                        print(f"{name}: {what} max|k-p| {err:.3e} (bound "
+                              f"{bound:.3e})")
+                        if not err <= bound:
+                            raise AssertionError(f"{name} {what}: {err} > "
+                                                 f"{bound}")
+                        errs.append(err)
+                    # the downsample: 16 taps x 3 channels a half-res pixel
+                    extra = 32.0 * 3 * IN * (IH // 2) * (IW // 2)
+                    res[name] = dict(
+                        max_abs_err=max(errs),
+                        ms=cuda_ms(lambda: fused(image, model)),
+                        plain_ms=cuda_ms(lambda: plain(image, model)),
+                        **roofline((image, model), got, count_flops(
+                            plain, (image, model)) + extra))
+            fused16 = model.fuse_to_cff1(stem1)
+            fused8 = model.CFF2(fused16, f1)[0]
+            wcls, bcls = model.packed("classifier", image.device,
+                                      icnet_head.pack_classifier)
+            head = icnet_head_flops(IN, h8, w8, CLASSES)
+            # CFF2: the dilated 3x3 and the 1x1 conv, and the separable
+            # 2x upsample of fused16 (3 taps per 1/8-res position)
+            cff2 = 2.0 * IN * h8 * w8 * (9 * 128 + 64 + 3) * 128
+            cases = {
+                "icnet_cff2_head_score": (
+                    icnet_head.fused_cff2_head8_entropy_score,
+                    icnet_head.cff2_head8_entropy_score_plain,
+                    (fused16, f1, model), head + cff2),
+                "icnet_head8_score": (
+                    icnet_head.fused_head8_entropy_score,
+                    icnet_head.head8_entropy_score_plain,
+                    (fused8, wcls, bcls, CLASSES), head),
+            }
+            for name, (fused, plain, args, flops) in cases.items():
+                got, want = fused(*args), plain(*args)
+                again = fused(*args)
+                err = (got - want).abs().max().item()
+                print(f"{name} (classifier x{scale:g}): scores "
+                      f"{[round(v, 6) for v in got.tolist()]}, max |k-p| "
+                      f"{err:.3e}, repeat identical "
+                      f"{torch.equal(got, again)}")
+                if not err <= SCORE_TOL or not torch.isfinite(got).all():
+                    raise AssertionError(f"{name}: scores differ by {err}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: not bit-repeatable")
+                r = res.setdefault(name, dict(max_abs_err=0.0))
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                if len(r) == 1:  # time at the first scale only
+                    r["ms"] = cuda_ms(lambda: fused(*args))
+                    r["plain_ms"] = cuda_ms(lambda: plain(*args))
+                    r.update(roofline(args, (got,), flops))
+        del f1, x_half, stem1, fused16, fused8
+    for k in ("icnet_front", "icnet_front_stem", "icnet_cff2_head_score",
+              "icnet_head8_score"):
+        r = res[k]
+        print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
+              f"(batch {IN}, {IH}x{IW})")
+    return res
+
+
+def score_icnet_pool(seed: int):
+    """Phase 7b, ICNet's scoring path: uint8 batches through
+    device_prefetch, /255 and make_score_step; then the fuse_cff2=False
+    and fuse_stem=False routes of fused_score once each. Returns (launch
+    counts, kernel ms/batch, plain ms/batch)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_front, icnet_head)
+    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+        make_score_step)
+    model = score_model(seed, ICNET_CLS_SCALE, "ICNet")
+    score_step = make_score_step(model, CLASSES, "entropy")
+    plain_step = make_score_step(model, CLASSES, "entropy", fused=False)
+    rng = np.random.default_rng(seed + 7)
+    host = [{"stack": rng.integers(0, 256, (IN, IH, IW, 3), dtype=np.uint8)}
+            for _ in range(POOL_BATCHES)]
+    wrappers = {"icnet_front_stem": icnet_front.fused_icnet_front_stem,
+                "icnet_cff2_head_score":
+                    icnet_head.fused_cff2_head8_entropy_score,
+                "icnet_front": icnet_front.fused_icnet_front,
+                "icnet_head8_score": icnet_head.fused_head8_entropy_score}
+    for fn in wrappers.values():
+        fn.launches = 0
+    stacks = []
+    scores, kernel_ms = timed_scores(score_step, prefetched(host, stacks))
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict(icnet_front_stem=POOL_BATCHES,
+                icnet_cff2_head_score=POOL_BATCHES, icnet_front=0,
+                icnet_head8_score=0)
+    print(f"icnet score: {len(scores)} batches, launches {launches} "
+          f"(expected {want})")
+    if launches != want:
+        raise AssertionError("the ICNet pool run did not go front+stem -> "
+                             "CFF2 + head once per batch")
+    plain, plain_ms = timed_scores(plain_step, stacks)
+    err = max((k - p).abs().max().item() for k, p in zip(scores, plain))
+    print(f"icnet score: kernel chain {kernel_ms:.3f} ms/batch "
+          f"({1e3 * IN / kernel_ms:.1f} images/s), plain chain "
+          f"{plain_ms:.3f} ms/batch ({1e3 * IN / plain_ms:.1f} images/s) "
+          f"(median of {POOL_BATCHES - WARMUP}, batch {IN}, {IH}x{IW}); "
+          f"max |k-p| score {err:.3e}; first batch "
+          f"{[round(v, 6) for v in scores[0].tolist()]}")
+    if scores[0].shape != (IN,) or scores[0].dtype != torch.float32 \
+            or not all(torch.isfinite(s).all() for s in scores):
+        raise AssertionError(f"scores: {scores[0].shape} {scores[0].dtype}")
+    if not err <= SCORE_TOL:
+        raise AssertionError("ICNet pool scores disagree with the plain "
+                             "chain")
+
+    # the other two routes, one batch each, counted together
+    image = stacks[0].float() / 255.0
+    for fn in wrappers.values():
+        fn.launches = 0
+    for kw in (dict(fuse_cff2=False), dict(fuse_stem=False)):
+        got = model.fused_score(image, "entropy", **kw)
+        torch.cuda.synchronize()
+        err = (got - plain[0]).abs().max().item()
+        print(f"icnet score: fused_score({kw}) max |k-p| {err:.3e}")
+        if not err <= SCORE_TOL:
+            raise AssertionError(f"the ICNet route {kw} failed")
+    routes = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict(icnet_front_stem=1, icnet_cff2_head_score=0, icnet_front=1,
+                icnet_head8_score=2)
+    print(f"icnet score: the two routes launched {routes} (expected {want})")
+    if routes != want:
+        raise AssertionError("the ICNet routes did not launch their kernels")
+    launches.update(icnet_front=routes["icnet_front"],
+                    icnet_head8_score=routes["icnet_head8_score"])
+    return launches, kernel_ms, plain_ms
+
+
+def profile_icnet(seed: int) -> None:
+    """Phase 7c: ICNet's scoring chain, kernel and plain, as phase 6."""
+    model = score_model(seed, ICNET_CLS_SCALE, "ICNet")
+    rng = np.random.default_rng(seed + 8)
+    stack = torch.from_numpy(
+        rng.integers(0, 256, (IN, IH, IW, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        for label, fused in (("icnet score kernel chain", True),
+                             ("icnet score plain chain", False)):
+            profile_chain(f"{label} (batch {IN}, {IH}x{IW})",
+                          scored(model, fused), stack)
 
 
 def main(argv=None) -> int:
@@ -720,6 +966,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     where_the_time_goes(args.seed)
 
+    # 7. ICNet pool scoring
+    torch.cuda.empty_cache()
+    per_kernel.update(check_icnet_kernels(args.seed))
+    torch.cuda.empty_cache()
+    icnet_launches, icnet_ms, icnet_plain_ms = score_icnet_pool(args.seed)
+    launches.update(icnet_launches)
+    torch.cuda.empty_cache()
+    profile_icnet(args.seed)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
         raise AssertionError(f"imported JAX or the JAX package: {leaked}")
@@ -727,6 +982,8 @@ def main(argv=None) -> int:
     kernels = []
     for k, (source, replaces) in KERNELS.items():
         r = per_kernel[k]
+        if launches[k] < 1:
+            raise AssertionError(f"{k} was never launched on its path")
         kernels.append(dict(
             name=k, route="cuda", source=source, replaces=replaces,
             launches=launches[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -736,6 +993,9 @@ def main(argv=None) -> int:
           f"ms/batch (batch {N}, {H}x{W}, ENet-{CLASSES}; {smi})")
     print(f"score: kernel {score_ms:.3f} ms/batch, plain {score_plain_ms:.3f}"
           f" ms/batch (batch {SN}, {SH}x{SW}, ENet-{CLASSES}; {smi})")
+    print(f"icnet score: kernel {icnet_ms:.3f} ms/batch, plain "
+          f"{icnet_plain_ms:.3f} ms/batch (batch {IN}, {IH}x{IW}, "
+          f"ICNet-{CLASSES}; {smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // The ENet decoder's last stages as device functions, shared by the
 // tail kernels (tail.cu: predict and entropy score) and the decoder and
 // deconv score kernels (decoder.cu), so that every route runs the same
-// stage-5, Final and entropy code.
+// stage-5, Final and entropy code; ICNet's head kernels (icnet_head.cu)
+// take its EntropyAcc and block_partial.
 //
 // stage5() runs Bottleneck5_0 (1x1 projection, 3x3/s2 transposed conv,
 // expand; residual = 1x1 conv unpooled by the B1_0 mask) and
@@ -126,6 +127,34 @@ __device__ __forceinline__ void stage5(const Buf X4,
   __syncthreads();
 }
 
+// A pixel's softmax entropy confidence 1 + (S/Z - log Z)/log C, online
+// over its classes: Z = sum e^(l-m), S = sum e^(l-m)(l-m), m the running
+// maximum, both sums rescaled when m grows. add() takes one logit (first
+// for the pixel's first class); conf() takes 1/log C.
+struct EntropyAcc {
+  float m = 0.f, z = 0.f, s = 0.f;
+  __device__ __forceinline__ void add(float logit, bool first) {
+    if (first) {
+      m = logit;
+      z = 1.f;
+    } else if (logit > m) {
+      const float d = m - logit;  // < 0: rescale the sums to the new max
+      const float e = expf(d);
+      s = e * (s + d * z);
+      z = e * z + 1.f;
+      m = logit;
+    } else {
+      const float d = logit - m;
+      const float e = expf(d);
+      z += e;
+      s += e * d;
+    }
+  }
+  __device__ __forceinline__ float conf(float inv_log_c) const {
+    return 1.f + (s / z - logf(z)) * inv_log_c;
+  }
+};
+
 // The Final transposed conv over the SIDE x SIDE half-res positions at
 // (hy0, hx0), from X5 (16 channels over at least {hy0-1, hx0-1, SIDE+1,
 // SIDE+1}, zero outside the half-res grid). Work items are phase-major,
@@ -133,9 +162,7 @@ __device__ __forceinline__ void stage5(const Buf X4,
 // thread takes one half-res position and its four output phases. Pixels
 // outside the H x W image are skipped. Predict (kScore false) writes
 // the first-max label to labels_n [H][W]; score returns the sum of this
-// thread's pixel confidences 1 + (S/Z - log Z)/log C, with Z = sum
-// e^(l-m), S = sum e^(l-m)(l-m) and m the running maximum, taken one
-// class at a time and rescaled when m grows.
+// thread's pixel confidences, one class at a time (EntropyAcc).
 template <bool kScore>
 __device__ __forceinline__ float final_stage(const Buf X5,
                                              const float* __restrict__ fw,
@@ -161,7 +188,8 @@ __device__ __forceinline__ float final_stage(const Buf X5,
         for (int ic = 0; ic < 16; ++ic) v[tr][tc][ic] = used ? s[ic] : 0.f;
       }
     int best_c = 0;
-    float m = 0.f, z = 0.f, s = 0.f;
+    float m = 0.f;
+    EntropyAcc ent;
     for (int cls = 0; cls < C; ++cls) {
       float logit = 0.f;
 #pragma unroll
@@ -176,28 +204,14 @@ __device__ __forceinline__ float final_stage(const Buf X5,
             logit += v[tr][tc][ic] * __ldg(w + ic * C);
         }
       if (kScore) {
-        if (cls == 0) {
-          m = logit;
-          z = 1.f;
-        } else if (logit > m) {
-          const float d = m - logit;  // < 0: rescale the sums to the new max
-          const float e = expf(d);
-          s = e * (s + d * z);
-          z = e * z + 1.f;
-          m = logit;
-        } else {
-          const float d = logit - m;
-          const float e = expf(d);
-          z += e;
-          s += e * d;
-        }
+        ent.add(logit, cls == 0);
       } else if (cls == 0 || logit > m) {
         m = logit;
         best_c = cls;
       }
     }
     if (kScore)
-      acc += 1.f + (s / z - logf(z)) * inv_log_c;
+      acc += ent.conf(inv_log_c);
     else
       labels_n[(size_t)R * W + Cc] = (int8_t)best_c;
   }

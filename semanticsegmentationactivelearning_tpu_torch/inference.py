@@ -46,6 +46,11 @@ _NOT_PORTED = {
     "view": "--view (the live matplotlib viewer) is not ported yet: "
             "ROADMAP.md Queue 1 item 7",
 }
+# ICNet scores pool images in the port but does not serve yet
+ICNET_SERVING = ("serving ICNet is not ported yet: it needs the "
+                 "ICNet-serving slice, the predict kernels "
+                 "fused_cff2_head8_predict and fused_head8_predict "
+                 "(ROADMAP.md Queue 2 items 8 and 9)")
 
 
 def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
@@ -121,6 +126,9 @@ def main(args) -> int:
     for flag, message in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(message)
+    model_name = _resolve_model_name(args)
+    if model_name.lower() == "icnet":
+        raise NotImplementedError(ICNET_SERVING)
     device = _serving_device(args.device)
     # the record reader, dataset tables and PNG writer (the loader and
     # the writer pull in PIL); imported here so that make_predict_fn's
@@ -147,7 +155,6 @@ def main(args) -> int:
     height, width, channels = example.peek_dims(files[0])
     logger.info("Input records: %dx%dx%d, %d examples", height, width,
                 channels, len(files))
-    model_name = _resolve_model_name(args)
     logger.info("Model: %s", model_name)
     model = get_model(model_name, dataset.num_classes)
     div = model.input_divisor

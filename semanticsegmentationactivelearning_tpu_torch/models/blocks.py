@@ -16,7 +16,7 @@ not ported.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,13 +27,50 @@ from ..ops import nn as xops
 BN_EPS = 1e-3
 
 
-def _same_pads(size: int, k: int, stride: int, dilation: int
-               ) -> Tuple[int, int]:
-    """(low, high) zero padding of XLA's "SAME" rule. A stride-2 3x3
-    conv on an even size pads (0, 1), not (1, 1)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
-    return total // 2, total - total // 2
+def add_blocks(module: nn.Module, named) -> Tuple[str, ...]:
+    """Register ``(name, block)`` pairs on ``module`` under their flax
+    names and return the names in order."""
+    names = []
+    for name, block in named:
+        module.add_module(name, block)
+        names.append(name)
+    return tuple(names)
+
+
+class PackedModel(nn.Module):
+    """A model whose kernels take BN-folded weight packs: ``packed``
+    builds each pack once per device and keeps it until the next
+    ``load_state_dict``."""
+
+    def __init__(self):
+        super().__init__()
+        self._packs: Dict[Tuple[str, torch.device], object] = {}
+
+    def packed(self, name: str, device: torch.device,
+               build: Callable[["PackedModel"], object]):
+        """The weight pack ``build(self)`` (a tensor or a list of
+        tensors) for one kernel on ``device``, built once and cached
+        until the next ``load_state_dict``. Call :meth:`clear_packs`
+        after editing weights in place."""
+        key = (name, torch.device(device))
+        if key not in self._packs:
+            with torch.no_grad():
+                pack = build(self)
+            if isinstance(pack, list):
+                pack = [p.to(key[1]).contiguous() for p in pack]
+            else:
+                pack = pack.to(key[1]).contiguous()
+            self._packs[key] = pack
+        return self._packs[key]
+
+    def clear_packs(self) -> None:
+        self._packs.clear()
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        self.clear_packs()
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
 
 
 class Conv(nn.Module):
@@ -54,8 +91,8 @@ class Conv(nn.Module):
         kh, kw = w.shape[2:]
         if (kh, kw) == (1, 1) and self.stride == 1:
             return x @ w[:, :, 0, 0].t()
-        ph = _same_pads(x.shape[1], kh, self.stride, self.dilation)
-        pw = _same_pads(x.shape[2], kw, self.stride, self.dilation)
+        ph = xops.same_pads(x.shape[1], kh, self.stride, self.dilation)
+        pw = xops.same_pads(x.shape[2], kw, self.stride, self.dilation)
         xc = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
         out = F.conv2d(xc, w, stride=self.stride, dilation=self.dilation)
         return out.permute(0, 2, 3, 1)

@@ -29,20 +29,19 @@ the training and core-set slices and are not ported yet (ROADMAP Queue
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Tuple
 
 import torch
-from torch import nn
 
 from .blocks import (Bottleneck, BottleneckDownsample, BottleneckUpsample,
-                     Final, Initial)
+                     Final, Initial, PackedModel, add_blocks)
 
 # (dilation, asymmetric) of Bottleneck{2,3}_1..8
 DILATED_SPEC = ((1, False), (2, False), (1, True), (4, False),
                 (1, False), (8, False), (1, True), (16, False))
 
 
-class ENet(nn.Module):
+class ENet(PackedModel):
     # input H and W must divide this (three pool/unpool levels)
     input_divisor = 8
     # fused_score computes the acquisition score without full-resolution
@@ -54,56 +53,24 @@ class ENet(nn.Module):
         self.num_classes = num_classes
         self.Initial = Initial(3, 16)
         self.Bottleneck1_0 = BottleneckDownsample(16, 64)
-        self.stage1 = self._add_blocks(
-            (f"Bottleneck1_{i}", Bottleneck(64)) for i in range(1, 5))
+        self.stage1 = add_blocks(self, (
+            (f"Bottleneck1_{i}", Bottleneck(64)) for i in range(1, 5)))
         self.Bottleneck2_0 = BottleneckDownsample(64, 128)
-        self.stage23 = self._add_blocks(
+        self.stage23 = add_blocks(self, (
             (f"Bottleneck{s}_{i}",
              Bottleneck(128, kernel_size=5 if asym else 3,
                         asymmetric=asym, dilation=d))
             for s in (2, 3)
-            for i, (d, asym) in enumerate(DILATED_SPEC, start=1))
+            for i, (d, asym) in enumerate(DILATED_SPEC, start=1)))
         self.Bottleneck4_0 = BottleneckUpsample(128, 64)
-        self.stage4 = self._add_blocks(
-            (f"Bottleneck4_{i}", Bottleneck(64)) for i in (1, 2))
+        self.stage4 = add_blocks(self, (
+            (f"Bottleneck4_{i}", Bottleneck(64)) for i in (1, 2)))
         self.Bottleneck5_0 = BottleneckUpsample(64, 16)
         self.Bottleneck5_1 = Bottleneck(16)
         self.Final = Final(16, num_classes)
-        self._packs: Dict[Tuple[str, torch.device], object] = {}
-
-    def _add_blocks(self, named) -> Tuple[str, ...]:
-        names = []
-        for name, block in named:
-            self.add_module(name, block)
-            names.append(name)
-        return tuple(names)
 
     def blocks(self, names: Tuple[str, ...]):
         return [getattr(self, n) for n in names]
-
-    # -- kernel weight packs -------------------------------------------
-
-    def packed(self, name: str, device: torch.device,
-               build: Callable[["ENet"], object]):
-        """The BN-folded weight pack ``build(self)`` for one kernel on
-        ``device``, built once and cached until the next
-        ``load_state_dict``. Call :meth:`clear_packs` after editing
-        weights in place."""
-        key = (name, torch.device(device))
-        if key not in self._packs:
-            with torch.no_grad():
-                pack = build(self)
-            self._packs[key] = _to_device(pack, key[1])
-        return self._packs[key]
-
-    def clear_packs(self) -> None:
-        self._packs.clear()
-
-    def load_state_dict(self, state_dict, strict: bool = True,
-                        assign: bool = False):
-        self.clear_packs()
-        return super().load_state_dict(state_dict, strict=strict,
-                                       assign=assign)
 
     # -- forward and seams ---------------------------------------------
 
@@ -241,10 +208,3 @@ class ENet(nn.Module):
                 features, kernel, self.num_classes)
         return acquisition.chunked_deconv_mean_confidence(
             features, kernel, measure, self.num_classes)
-
-
-def _to_device(pack, device):
-    """A pack (a tensor or a list of tensors) on ``device``."""
-    if isinstance(pack, list):
-        return [p.to(device).contiguous() for p in pack]
-    return pack.to(device).contiguous()

@@ -14,11 +14,12 @@ pixel-level threshold mask for pseudo-labelling (265-269). Logits are
 NHWC ``[B, H, W, C]``, as in the JAX package.
 
 All of it is plain PyTorch. The entropy measure's hot path is the score
-kernels of ``ops/kernels`` (tail, decoder, deconv); the other measures
-take :func:`chunked_deconv_mean_confidence`, as the JAX package leaves
-them to XLA. The Monte-Carlo measure (BALD) and ICNet's
-``chunked_upsample_mean_confidence`` are not ported yet (ROADMAP.md
-Queue 1 items 8 and 9).
+kernels of ``ops/kernels`` (ENet's tail, decoder and deconv; ICNet's
+CFF2 + head and head); the other measures take
+:func:`chunked_deconv_mean_confidence` (ENet) and
+:func:`chunked_upsample_mean_confidence` (ICNet), as the JAX package
+leaves them to XLA. The Monte-Carlo measure (BALD) is not ported yet
+(ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import nn as xops
 
 # Lowest representable float32 (reference: active_learning.py:40)
 EPSILON = float(np.finfo(np.float32).tiny)
@@ -100,6 +103,40 @@ def chunked_deconv_mean_confidence(features: torch.Tensor,
         logits = conv_transpose_same(rows, kernel)[:, 2:-2].float()
         sums += confidence_map(logits, measure, num_classes).sum(dim=(1, 2))
     return sums / float(h2 * 2 * w2 * 2)
+
+
+def chunked_upsample_mean_confidence(logits_low: torch.Tensor, scale: int,
+                                     measure: str, num_classes: int,
+                                     chunk: int = 32) -> torch.Tensor:
+    """The scoring tail of a model that classifies at reduced resolution
+    (ICNet's 1/4-res head) as plain PyTorch: bilinear ``scale``x
+    upsample -> softmax -> confidence -> per-image mean, over row chunks
+    of the low-res logits, so that only a ``[N, (chunk+2)*scale, W, C]``
+    logits window is live at a time.
+
+    Each chunk carries a one-row halo from an edge-replicated pad: a
+    bilinear upsample's output row draws on at most the low-res rows
+    next to it, so the kept interior rows of a slice's resize equal the
+    global resize, at the image edges too, where the replicated row is
+    the resize's own clamp.
+
+    :param logits_low: ``[N, Hl, Wl, C]`` low-resolution logits
+    :param scale:      integer upsample factor to full resolution
+    :returns: ``[N]`` mean confidence (float32)
+    """
+    n, hl, wl, _c = logits_low.shape
+    if hl % chunk != 0:
+        # one chunk if the height doesn't divide evenly
+        chunk = hl
+    low = logits_low.float()
+    padded = torch.cat([low[:, :1], low, low[:, -1:]], dim=1)
+    sums = torch.zeros(n, dtype=torch.float32, device=logits_low.device)
+    for i in range(hl // chunk):
+        rows = padded[:, i * chunk:i * chunk + chunk + 2]
+        up = xops.resize_bilinear(rows, ((chunk + 2) * scale, wl * scale))
+        conf = confidence_map(up[:, scale:-scale], measure, num_classes)
+        sums += conf.sum(dim=(1, 2))
+    return sums / float(hl * scale * wl * scale)
 
 
 def pseudo_annotate(logits: torch.Tensor, measure: str, num_classes: int,

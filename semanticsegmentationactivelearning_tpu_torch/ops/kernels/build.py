@@ -53,6 +53,13 @@ SIGNATURES = {
     "ssal_decoder_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_deconv_partials": ([_I, _I], _I),
     "ssal_deconv_score": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_icnet_front_pack_size": ([], _I),
+    "ssal_icnet_front": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ssal_icnet_front_stem": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ssal_head8_partials": ([_I, _I], _I),
+    "ssal_head8_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_cff2_head_pack_size": ([_I], _I),
+    "ssal_cff2_head_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
 }
 
 

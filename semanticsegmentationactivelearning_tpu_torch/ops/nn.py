@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -71,6 +72,39 @@ def unpool_with_switches(y: torch.Tensor, switches: torch.Tensor
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """Plain 2x2/stride-2 max pool (the Initial block's pool branch)."""
     return _to_windows(x).amax(dim=3)
+
+
+def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(x, (N, *hw, C), "bilinear")`` on NHWC ``x``:
+    half-pixel centers, edges clamped on the way up, and antialiased on
+    the way down (a 2x downsample is the tent (1, 3, 3, 1)/8, its edge
+    taps renormalized to (3, 3, 1)/7), which ``F.interpolate`` gives
+    with ``antialias=True``. Upsampling is the same either way."""
+    h, w = x.shape[1:3]
+    down = hw[0] < h or hw[1] < w
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw),
+                        mode="bilinear", align_corners=False,
+                        antialias=down)
+    return out.permute(0, 2, 3, 1)
+
+
+def max_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
+    """``flax.linen.max_pool(x, (3, 3), strides=(2, 2), padding="SAME")``
+    on NHWC ``x``: XLA's SAME rule pads an even size (0, 1), with -inf."""
+    ph = same_pads(x.shape[1], 3, 2)
+    pw = same_pads(x.shape[2], 3, 2)
+    xc = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]),
+               value=float("-inf"))
+    return F.max_pool2d(xc, 3, stride=2).permute(0, 2, 3, 1)
+
+
+def same_pads(size: int, k: int, stride: int, dilation: int = 1
+              ) -> Tuple[int, int]:
+    """(low, high) padding of XLA's "SAME" rule. A stride-2 3x3 window
+    on an even size pads (0, 1), not (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
 
 
 def spatial_dropout(x: torch.Tensor, rate: float,

@@ -1,10 +1,12 @@
 """Weight bridge from the JAX package to the PyTorch port.
 
-The JAX package keeps ENet's weights as a flax variable tree
-``{"params": ..., "batch_stats": ...}`` of nested dicts; the port keeps
-a ``state_dict`` whose keys carry the same module names. The rules:
+The JAX package keeps a model's weights (ENet's, ICNet's) as a flax
+variable tree ``{"params": ..., "batch_stats": ...}`` of nested dicts;
+the port keeps a ``state_dict`` whose keys carry the same module names.
+The rules:
 
-- Conv ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``.
+- Conv ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``; a
+  conv ``bias`` (ICNet's ``Classifier`` and ``aux_cls``) stays ``bias``.
 - ConvTranspose ``kernel [3, 3, in, out]`` (``lax.conv_transpose`` with
   ``transpose_kernel=False``) -> spatially flipped, ``[in, out, kh, kw]``
   (the port runs ``conv_transpose2d(stride=2)`` and crops to 2H x 2W).
@@ -12,8 +14,9 @@ a ``state_dict`` whose keys carry the same module names. The rules:
   ``weight/bias/running_mean/running_var``.
 - PReLU ``alpha`` stays as it is.
 
-The multiscale loss heads (``MultiscaleHead_*``) are training-only and
-not ported yet, so they are skipped.
+ENet's multiscale loss heads (``MultiscaleHead_*``) are training-only
+and not ported yet, so they are skipped; ICNet's cascade heads
+(``aux_cls``) are ported and carried over.
 
 :func:`read_jax_checkpoint` reads the ``.ckpt`` files the JAX
 package's ``train/checkpoint.save_checkpoint`` writes (flax msgpack,
@@ -65,7 +68,7 @@ def _walk(tree: Mapping, prefix: tuple = ()):
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax ``{"params", "batch_stats"}`` tree (nested dicts of
-    numpy arrays) to the port's ENet ``state_dict``."""
+    numpy arrays) to the port's ``state_dict`` (ENet or ICNet)."""
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _walk(variables.get(collection, {})):

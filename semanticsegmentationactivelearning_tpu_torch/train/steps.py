@@ -26,10 +26,11 @@ def make_score_step(model, num_classes: int, measure: str,
     mean confidence for ``batch = {"image": float NHWC}`` on the model's
     device.
 
-    With ``fused`` and a model that supports it (ENet), the score runs
-    through ``model.fused_score``: on a CUDA device the front, mid and
-    tail score kernels, and full-resolution logits never reach memory.
-    Otherwise the plain forward and ``acquisition.mean_confidence``."""
+    With ``fused`` and a model that supports it (ENet, ICNet), the score
+    runs through ``model.fused_score``: on a CUDA device ENet's front,
+    mid and tail score kernels or ICNet's front+stem and CFF2 + head
+    kernels, and full-resolution logits never reach memory. Otherwise
+    the plain forward and ``acquisition.mean_confidence``."""
     use_fused = fused and getattr(model, "supports_fused_scoring", False)
     model.eval()
 

@@ -5,8 +5,9 @@ the JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -o addopts="" -m cuda \\
         tests/test_torch_cuda.py -q
 
-Each kernel is held against its plain PyTorch version on the same
-inputs, with TF32 off on both sides: features rtol = atol = 1e-4;
+Each kernel (ENet's and ICNet's) is held against its plain PyTorch
+version on the same inputs, with TF32 off on both sides: features rtol
+= atol = 1e-4 (ICNet's half-res image 1e-5);
 switches exact where the pooled window's top-2 gap exceeds 1e-4;
 labels exact where the top-2 logit margin exceeds 1e-3; per-image
 scores |difference| <= 1e-4 (means over the pixels, summed in another
@@ -20,10 +21,11 @@ from semanticsegmentationactivelearning_tpu_torch.data.device_prefetch \
     import device_prefetch
 from semanticsegmentationactivelearning_tpu_torch.inference import (
     make_predict_fn)
-from semanticsegmentationactivelearning_tpu_torch.models import ENet
+from semanticsegmentationactivelearning_tpu_torch.models import ENet, ICNet
 from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
 from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
-    deconv_score, decoder, front, mid, packing, tail)
+    deconv_score, decoder, front, icnet_front, icnet_head, mid, packing,
+    tail)
 from semanticsegmentationactivelearning_tpu_torch.train.steps import (
     make_score_step)
 
@@ -232,3 +234,127 @@ def test_score_step_through_device_prefetch(model):
         assert got.is_cuda and got.shape == (2,)
         assert (got - want).abs().max().item() <= 1e-4
     assert tail.fused_tail_entropy_score.launches == launches + 2
+
+
+# -- ICNet -------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def icnet():
+    """ICNet-19 with chip_smoke.py's seeded ICNet weights and the
+    classifier x5, so that the scores sit inside (0, 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from chip_smoke import seeded_state_dict  # the repo root, on sys.path
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = ICNet(C)
+    m.load_state_dict(seeded_state_dict(m, 1, 5.0, "ICNet"))
+    return m.cuda().eval()
+
+
+# multi-tile; ragged front and head tiles (W/8 = 20, H/8 = 12); one tile
+# at batch 3; a wide ragged grid (W/8 = 44, H/8 = 20)
+ICNET_SHAPES = [(2, 64, 96, 3), (1, 96, 160, 3), (3, 32, 32, 3),
+                (1, 160, 352, 3)]
+
+
+@pytest.mark.parametrize("shape", ICNET_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_icnet_kernels_match_plain_versions(icnet, shape):
+    """The front, front+stem, CFF2 + head and head kernels on the plain
+    chain's activations: features within 1e-4, scores within 1e-4 and
+    bit-equal from one run to the next."""
+    image = _image(shape, 9)
+    n = shape[0]
+    with torch.no_grad():
+        f1p, xhp = icnet_front.icnet_front_plain(image, icnet)
+        f1, xh = icnet_front.fused_icnet_front(image, icnet)
+        torch.testing.assert_close(f1, f1p, **TOL)
+        torch.testing.assert_close(xh, xhp, rtol=1e-5, atol=1e-5)
+        stp = icnet.SharedStem.front(xhp)
+        f1s, st = icnet_front.fused_icnet_front_stem(image, icnet)
+        assert torch.equal(f1s, f1)
+        torch.testing.assert_close(st, stp, **TOL)
+        fused16 = icnet.fuse_to_cff1(stp)
+        fused8 = icnet.CFF2(fused16, f1p)[0]
+        wcls, bcls = icnet.packed("classifier", image.device,
+                                  icnet_head.pack_classifier)
+        cases = [
+            (lambda: icnet_head.fused_cff2_head8_entropy_score(
+                fused16, f1p, icnet),
+             icnet_head.cff2_head8_entropy_score_plain(fused16, f1p, icnet)),
+            (lambda: icnet_head.fused_head8_entropy_score(fused8, wcls, bcls,
+                                                          C),
+             icnet_head.head8_entropy_score_plain(fused8, wcls, bcls, C)),
+        ]
+        for run, want in cases:
+            got = run()
+            assert got.dtype == torch.float32 and got.shape == (n,)
+            assert ((0.05 < got) & (got < 0.95)).all()
+            assert (got - want).abs().max().item() <= 1e-4
+            assert torch.equal(got, run())
+
+
+# (route, fused_score flags, the wrappers the route launches)
+ICNET_ROUTES = [
+    ("default", {}, ("front_stem", "cff2_head")),
+    ("no_cff2", dict(fuse_cff2=False), ("front_stem", "head8")),
+    ("no_stem", dict(fuse_stem=False), ("front", "head8")),
+]
+
+
+@pytest.mark.parametrize("name, flags, route", ICNET_ROUTES,
+                         ids=[r[0] for r in ICNET_ROUTES])
+def test_icnet_fused_score_routes_count_their_launches(icnet, name, flags,
+                                                       route):
+    image = _image((2, 64, 96, 3), 10)
+    wrappers = {"front": icnet_front.fused_icnet_front,
+                "front_stem": icnet_front.fused_icnet_front_stem,
+                "cff2_head": icnet_head.fused_cff2_head8_entropy_score,
+                "head8": icnet_head.fused_head8_entropy_score}
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    got = icnet.fused_score(image, "entropy", **flags)
+    torch.cuda.synchronize()
+    rose = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    assert rose == {k: int(k in route) for k in wrappers}
+    with torch.no_grad():
+        want = acquisition.mean_confidence(icnet(image), "entropy", C)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_icnet_wrappers_validate_their_inputs(icnet):
+    image = _image((1, 32, 64, 3), 11)
+    with pytest.raises(TypeError):
+        icnet_front.fused_icnet_front(image.double(), icnet)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        icnet_front.fused_icnet_front_stem(_image((1, 48, 64, 3), 11), icnet)
+    with pytest.raises(ValueError, match="contiguous"):
+        icnet_front.fused_icnet_front(image.transpose(1, 2), icnet)
+    f16 = torch.zeros(1, 2, 4, 128, device="cuda")
+    with pytest.raises(ValueError, match="f1"):
+        icnet_head.fused_cff2_head8_entropy_score(
+            f16, torch.zeros(1, 4, 4, 64, device="cuda"), icnet)
+    with pytest.raises(ValueError, match="CUDA"):
+        icnet_head.fused_head8_entropy_score(
+            torch.zeros(1, 4, 8, 128, device="cuda"), torch.zeros(128, C),
+            torch.zeros(C), C)
+    with pytest.raises(ValueError, match="features8"):
+        icnet_head.fused_head8_entropy_score(
+            torch.zeros(1, 4, 8, 64, device="cuda"),
+            torch.zeros(128, C, device="cuda"), torch.zeros(C, device="cuda"),
+            C)
+
+
+def test_icnet_score_step_through_device_prefetch(icnet):
+    score = make_score_step(icnet, C, "entropy")
+    plain = make_score_step(icnet, C, "entropy", fused=False)
+    rng = np.random.default_rng(12)
+    host = [{"stack": rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)}
+            for _ in range(2)]
+    launches = icnet_head.fused_cff2_head8_entropy_score.launches
+    for b in device_prefetch(iter(host), "cuda"):
+        image = b["stack"].float() / 255.0
+        got, want = score({"image": image}), plain({"image": image})
+        assert got.is_cuda and got.shape == (2,)
+        assert (got - want).abs().max().item() <= 1e-4
+    assert icnet_head.fused_cff2_head8_entropy_score.launches == launches + 2

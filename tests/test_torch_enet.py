@@ -202,7 +202,7 @@ def test_bridge_skips_multiscale_heads(pair):
 
 def test_get_model():
     assert isinstance(get_model("enet", 3), ENet)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("ICNet", 3)
-    with pytest.raises(NotImplementedError):
+    # ICNet is ported since its scoring slice (tests/test_torch_icnet.py)
+    assert type(get_model("ICNet", 3)).__name__ == "ICNet"
+    with pytest.raises(NotImplementedError, match="not supported"):
         get_model("UNet", 3)

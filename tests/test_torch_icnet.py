@@ -1,0 +1,337 @@
+"""The PyTorch port's ICNet against the JAX package's, fp32 on the CPU:
+the weight bridge and checkpoints, the rules that the port must follow
+to match XLA (stride-2 SAME padding, the -inf max pool, the antialiased
+downsample, the pyramid pooling windows), the whole forward, the kernel
+seams, ``ICNet.fused_score`` on every route and measure, and
+``make_score_step``. Weights come from one jitted ``ICNet.init`` in JAX
+at ``tests/test_icnet.py``'s 64x96 (a 2-tile grid of every ICNet kernel),
+with noised BatchNorm statistics, through ``train/bridge.py``; the
+classifier kernel is scaled by 25 on both sides so that the scores sit
+well away from 0.
+
+On the CPU each kernel wrapper runs its plain version, so the
+``fused_score`` routes here are the plain chains that the CUDA kernels
+are held against on the card (chip_smoke.py phase 7 and the
+``cuda``-marked tests of test_torch_cuda.py).
+
+Tolerances: features rtol 1e-4 / atol 1e-5 and scores rtol 1e-4 / atol
+1e-5, as tests/test_icnet.py holds the Pallas kernels (fp32 sums in
+another order through ~60 conv layers); logits atol 1e-5 times the
+classifier's scale of 25, which multiplies the features' differences."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import optax
+
+from semanticsegmentationactivelearning_tpu.models.icnet import (
+    ICNet as JaxICNet, PyramidPooling as JaxPyramidPooling)
+from semanticsegmentationactivelearning_tpu.train import (
+    checkpoint as jax_checkpoint)
+from semanticsegmentationactivelearning_tpu.train import steps as jax_steps
+from semanticsegmentationactivelearning_tpu_torch import inference
+from semanticsegmentationactivelearning_tpu_torch.models import (
+    ICNet, get_model)
+from semanticsegmentationactivelearning_tpu_torch.models.icnet import (
+    PyramidPooling)
+from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
+from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+    icnet_front, icnet_head)
+from semanticsegmentationactivelearning_tpu_torch.train import (
+    bridge, checkpoint, steps)
+
+from _torch_parity import icnet_variables, port_icnet, to_numpy_tree
+
+HW = (64, 96)
+C = 5
+CLS_SCALE = 25.0
+FEATURE_TOL = dict(rtol=1e-4, atol=1e-5)
+# the scaled classifier multiplies the features' differences by its scale
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-5 * CLS_SCALE)
+SCORE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jm, v = icnet_variables(C, HW, 0)
+    params = dict(v["params"])
+    cls = params["Classifier"]
+    params["Classifier"] = {"kernel": cls["kernel"] * CLS_SCALE,
+                            "bias": cls["bias"]}
+    variables = {"params": params, "batch_stats": v["batch_stats"]}
+    return jm, variables, port_icnet(variables, C)
+
+
+def _image(shape, seed):
+    return np.random.default_rng(seed).uniform(size=shape).astype(np.float32)
+
+
+def _close(got, want, tol=FEATURE_TOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+
+
+# -- weights --------------------------------------------------------------
+
+def test_bridge_maps_every_icnet_weight(setup):
+    """Every flax leaf has a port key and back (strict load), the cascade
+    classifiers included; kernels are transposed, biases kept."""
+    _, variables, tm = setup
+    converted = bridge.state_dict_from_flax(to_numpy_tree(variables))
+    assert converted.keys() == tm.state_dict().keys()
+    assert {"CFF1.aux_cls.weight", "CFF2.aux_cls.bias", "Classifier.bias",
+            "LowResTail.res5_3.expand.bn.running_var"} <= converted.keys()
+    p = variables["params"]
+    np.testing.assert_array_equal(
+        tm.SharedStem.res3_1.conv.conv.weight.detach().numpy(),
+        np.transpose(np.asarray(p["SharedStem"]["res3_1"]["conv"]["conv"]
+                                ["kernel"]), (3, 2, 0, 1)))
+    np.testing.assert_array_equal(tm.Classifier.bias.detach().numpy(),
+                                  np.asarray(p["Classifier"]["bias"]))
+    n_params = sum(np.prod(a.shape) for a in jax.tree.leaves(p))
+    assert n_params == sum(t.numel() for t in tm.parameters())
+
+
+def test_jax_checkpoint_restores_icnet(setup, tmp_path):
+    """A JAX ICNet TrainState written by the JAX package's checkpoint
+    module loads strictly into the port's ICNet."""
+    _, variables, tm = setup
+    state = jax_steps.TrainState(
+        params=variables["params"], batch_stats=variables["batch_stats"],
+        opt_state=optax.adam(1e-3).init(variables["params"]),
+        step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
+    path = jax_checkpoint.save_checkpoint(str(tmp_path / "model-1.ckpt"),
+                                          state)
+    model = ICNet(C)
+    restored = checkpoint.restore_checkpoint(str(tmp_path), model)
+    want = tm.state_dict()
+    assert bridge.is_jax_checkpoint(path) and restored.keys() == want.keys()
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0)
+
+
+# -- the rules that keep the port on XLA's numbers ------------------------
+
+# (module, getter on the port, JAX method, input shape)
+STRIDE2 = [
+    ("Branch1_1", lambda m: m.Branch1_1, lambda m, x: m.branch1_1(x, False),
+     (1, 32, 48, 3)),
+    ("conv1_1", lambda m: m.SharedStem.conv1_1,
+     lambda m, x: m.stem.conv1_1(x, False), (1, 32, 48, 3)),
+    ("res3_1", lambda m: m.SharedStem.res3_1,
+     lambda m, x: m.stem.res3_1(x, False), (1, 8, 12, 128)),
+]
+
+
+@pytest.mark.parametrize("name, getter, jax_fn, shape", STRIDE2,
+                         ids=[s[0] for s in STRIDE2])
+def test_stride2_convs_pad_low_zero(setup, name, getter, jax_fn, shape):
+    """Stride-2 3x3 SAME convs pad (0, 1); torch's symmetric padding=1
+    would not match."""
+    jm, variables, tm = setup
+    x = _image(shape, 1)
+    want = jm.apply(variables, jnp.asarray(x), method=jax_fn)
+    with torch.no_grad():
+        got = getter(tm)(torch.from_numpy(x))
+        _close(got, want)
+        if name == "res3_1":
+            return
+        # not vacuous: the symmetric padding differs
+        xc, weight = torch.from_numpy(x).permute(0, 3, 1, 2), \
+            getter(tm).conv.weight
+        sym = F.conv2d(xc, weight, stride=2, padding=1)
+        low = F.conv2d(F.pad(xc, (0, 1, 0, 1)), weight, stride=2)
+        assert (sym - low).abs().max() > 1e-2
+
+
+def test_max_pool_pads_with_minus_inf():
+    """The SAME 3x3/s2 max pool pads (0, 1) with -inf, so negative inputs
+    at the high edge keep their own maximum."""
+    x = _image((2, 8, 12, 4), 2) - 2.0
+    want = fnn.max_pool(jnp.asarray(x), (3, 3), strides=(2, 2),
+                        padding="SAME")
+    got = xops.max_pool_3x3_same(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got < 0).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 96, 3), (2, 8, 12, 256)])
+def test_downsample_is_antialiased(shape):
+    """A jax.image.resize bilinear 2x downsample is antialiased (taps
+    (1, 3, 3, 1)/8, (3, 3, 1)/7 at the edges); without antialiasing the
+    port would be far off."""
+    x = _image(shape, 3)
+    n, h, w, c = shape
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (n, h // 2, w // 2, c),
+                                       method="bilinear"))
+    got = xops.resize_bilinear(torch.from_numpy(x), (h // 2, w // 2))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    plain = F.interpolate(torch.from_numpy(x).permute(0, 3, 1, 2),
+                          size=(h // 2, w // 2), mode="bilinear",
+                          align_corners=False).permute(0, 2, 3, 1)
+    assert np.abs(plain.numpy() - want).max() > 1e-2
+
+
+@pytest.mark.parametrize("hw", [(32, 64), (5, 11), (2, 3)],
+                         ids=["cell_1_32_grid", "remainders", "tiny"])
+def test_pyramid_pooling_windows(hw):
+    """avg_pool with window = stride = max(h // b, 1), the remainder
+    dropped (not adaptive pooling), then a bilinear upsample with
+    non-integer ratios; 32x64 is the cell's 1/32 grid."""
+    x = _image((2, *hw, 8), 4)
+    want = JaxPyramidPooling().apply({}, jnp.asarray(x), False)
+    got = PyramidPooling()(torch.from_numpy(x))
+    _close(got, want)
+
+
+# -- the forward and the seams ---------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 64, 96, 3), (1, 160, 352, 3)],
+                         ids=["1x64x96", "1x160x352"])
+def test_forward_matches_apply(setup, shape):
+    """Logits and the cascade heads; at 160x352 the 1/32 grid is 5x11,
+    so the pyramid windows leave remainders and upsample by non-integer
+    ratios."""
+    jm, variables, tm = setup
+    x = _image(shape, 5)
+    logits, heads = jm.apply(variables, jnp.asarray(x), training=False,
+                             multiscale=True)
+    with torch.no_grad():
+        got, got_heads = tm(torch.from_numpy(x), multiscale=True)
+    assert got.shape == shape[:3] + (C,)
+    assert np.abs(np.asarray(logits)).max() > 1.0  # not vacuous
+    _close(got, logits, LOGIT_TOL)
+    _close(got_heads[0], heads[0], LOGIT_TOL)  # cls4
+    for g, w in zip(got_heads[1:], heads[1:]):  # aux8, aux16
+        _close(g, w)
+
+
+def test_seams_match_jax(setup):
+    """return_features8, return_pre_logits, fuse_from_front,
+    fuse_to_cff1, fuse_from_stem1 and head_pre_logits against the JAX
+    seams, on the port's own intermediates."""
+    jm, variables, tm = setup
+    x = _image((1, *HW, 3), 6)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    apply = lambda *a, **k: np.asarray(jm.apply(variables, *a, **k))
+    with torch.no_grad():
+        fused8 = tm(tx, return_features8=True)
+        _close(fused8, apply(jx, training=False, return_features8=True))
+        _close(tm(tx, return_pre_logits=True),
+               apply(jx, training=False, return_pre_logits=True), LOGIT_TOL)
+        f1, x_half = icnet_front.icnet_front_plain(tx, tm)
+        stem1 = tm.SharedStem.front(x_half)
+        j = lambda t: jnp.asarray(t.numpy())
+        _close(tm.fuse_from_front(f1, x_half),
+               apply(j(f1), j(x_half), method=JaxICNet.fuse_from_front))
+        _close(tm.fuse_to_cff1(stem1),
+               apply(j(stem1), method=JaxICNet.fuse_to_cff1))
+        _close(tm.fuse_from_stem1(f1, stem1),
+               apply(j(f1), j(stem1), method=JaxICNet.fuse_from_stem1))
+        _close(tm.head_pre_logits(fused8),
+               apply(j(fused8), method=JaxICNet.head_pre_logits), LOGIT_TOL)
+
+
+# -- fused_score and the score step ------------------------------------------
+
+# (route, fused_score flags, the port wrappers the route takes)
+ROUTES = [
+    ("front_stem_cff2_head", {},
+     ["fused_icnet_front_stem", "fused_cff2_head8_entropy_score"]),
+    ("front_stem_head", dict(fuse_cff2=False),
+     ["fused_icnet_front_stem", "fused_head8_entropy_score"]),
+    ("front_head", dict(fuse_stem=False),
+     ["fused_icnet_front", "fused_head8_entropy_score"]),
+]
+
+
+@pytest.mark.parametrize("route, flags, wrappers", ROUTES,
+                         ids=[r[0] for r in ROUTES])
+def test_fused_score_route_matches_jax(setup, monkeypatch, route, flags,
+                                       wrappers):
+    """Each entropy route (the wrappers' plain versions on the CPU)
+    against the JAX reference score, fused_score(use_pallas=False)."""
+    jm, variables, tm = setup
+    x = _image((2, *HW, 3), 7)
+    want = jm.fused_score(variables, jnp.asarray(x), "entropy")
+    calls = []
+    for mod in (icnet_front, icnet_head):
+        for name in wrappers:
+            if hasattr(mod, name):
+                real = getattr(mod, name)
+                monkeypatch.setattr(
+                    mod, name, lambda *a, _r=real, _n=name, **k:
+                    calls.append(_n) or _r(*a, **k))
+    got = tm.fused_score(torch.from_numpy(x), "entropy", **flags)
+    assert calls == wrappers
+    assert got.dtype == torch.float32 and got.shape == (2,)
+    assert (0.05 < got).all() and (got < 0.95).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCORE_TOL)
+
+
+@pytest.mark.parametrize("measure", ["margin", "confidence"])
+def test_fused_score_other_measures_match_jax(setup, measure):
+    jm, variables, tm = setup
+    x = _image((1, *HW, 3), 8)
+    want = jm.fused_score(variables, jnp.asarray(x), measure)
+    got = tm.fused_score(torch.from_numpy(x), measure)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCORE_TOL)
+
+
+def test_fused_score_rejects_bad_shapes(setup):
+    tm = setup[2]
+    with pytest.raises(ValueError, match="divisible by 32"):
+        tm.fused_score(torch.zeros(1, 48, 96, 3), "entropy")
+    with pytest.raises(ValueError, match="divisible by 32"):
+        tm(torch.zeros(1, 64, 80, 3))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_make_score_step_matches_jax(setup, fused):
+    jm, variables, tm = setup
+    state = jax_steps.TrainState(
+        params=variables["params"], batch_stats=variables["batch_stats"],
+        opt_state=None, step=jnp.zeros((), jnp.int32),
+        epoch=jnp.zeros((), jnp.int32))
+    x = _image((2, *HW, 3), 9)
+    want = jax_steps.make_score_step(jm, C, "entropy", fused=fused)(
+        state, {"image": jnp.asarray(x)})
+    got = steps.make_score_step(tm, C, "entropy", fused=fused)(
+        {"image": torch.from_numpy(x)})
+    assert got.dtype == torch.float32 and got.shape == (2,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCORE_TOL)
+
+
+# -- registry and the CLI ----------------------------------------------------
+
+def test_get_model_builds_icnet():
+    m = get_model("ICNet", 19)
+    assert isinstance(m, ICNet) and m.num_classes == 19
+    assert m.supports_fused_scoring and not m.uses_dropout
+    assert m.input_divisor == 32 and m.ms_loss_weights == (1.0, 0.4, 0.4)
+    n = sum(p.numel() for p in m.parameters())
+    assert 5.0e6 < n < 1.0e7, n  # as tests/test_icnet.py bounds the JAX one
+
+
+def test_inference_cli_names_the_icnet_serving_slice(tmp_path):
+    """ICNet scores in the port but does not serve yet: the CLI raises
+    before it reads any record and names the slice that serves it."""
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "config.json").write_text(json.dumps(
+        {"network": {"model": "ICNet"}}))
+    args = inference.parse_arguments(
+        ["-c", str(run / "model-1.ckpt"), "-d", str(tmp_path / "none"),
+         "-o", str(tmp_path / "o"), "-t", "cityscapes", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ICNet-serving slice"):
+        inference.main(args)
+    with pytest.raises(NotImplementedError, match="fused_head8_predict"):
+        inference.main(inference.parse_arguments(
+            ["-c", "x", "-d", "y", "-o", "z", "-t", "cityscapes", "-m",
+             "ICNet"]))
