@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's ENet serving and pool-scoring paths
-and ICNet's pool-scoring path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's ENet and ICNet serving and
+pool-scoring paths and of its measurement rigs on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -51,6 +51,31 @@ Phases (any failure raises, so the exit code is not 0):
         fuse_cff2=False and fuse_stem=False routes;
      c. the phase-6 breakdown of ICNet's scoring chain, kernel and
         plain.
+  8. ICNet serving, at ENet serving's shape (ICNet-19, batch 2,
+     1024x2048, fp32), with seeded weights:
+     a. the two predict kernels (CFF2 + head, head) against their plain
+        versions on the same inputs (the plain chain's fused16 and
+        fused8), with the classifier x5 and x25: no label may differ
+        where the plain logits' top-2 margin exceeds 1e-3, and at least
+        99% of the pixels must be so decided; each one's time beside its
+        plain version's;
+     b. serving: 10 uint8 batches through device_prefetch and
+        make_predict_fn, with the counters zeroed before (front+stem and
+        CFF2 + head predict once a batch); the maps against the plain
+        forward's on decided pixels (at most 1e-4 of them may differ);
+        the kernel chain's time beside the plain chain's; then one batch
+        each through the fuse_cff2=False and fuse_stem=False routes of
+        fused_predict;
+     c. the inference CLI on four ICNet records with a checkpoint whose
+        config.json names ICNet, once plainly and once with
+        --output-size at half the record size;
+     d. the phase-6 breakdown of ICNet's serving chain, kernel and plain.
+  9. the rigs, each run once through its script at its default size
+     with the counters zeroed before (tools/probe_launch_overhead.py,
+     probe_matmul_floor.py and probe_front_packing.py of the port), then
+     each rig kernel against its plain version on the scripts' inputs:
+     every sum within 1e-5 (fp32) or 1e-2 (bf16) of the sum of the
+     magnitudes it adds up.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}. Neither this process nor its child
 processes (the record writer and the CLI) import JAX or the JAX package;
@@ -70,7 +95,7 @@ import time
 from collections import defaultdict
 
 import numpy as np
-import PIL  # noqa: F401  (the CLI phase writes and reads PNGs)
+import PIL.Image  # the CLI phases write and read PNGs
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -99,8 +124,9 @@ SCORE_TOL = 1e-4                           # |score difference| per image
 BATCHES, WARMUP = 10, 2  # served batches; the first WARMUP are not timed
 REPS = 5                 # timed runs per kernel and per plain version
 PROFILE_BATCHES = 5      # phase 6's profiled batches per chain
-# published H100 SXM peaks: fp32 outside the tensor cores, HBM3
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# published H100 SXM peaks: fp32 outside the tensor cores, HBM3, dense
+# bf16 on the tensor cores
+PEAK_FLOPS, PEAK_BYTES, PEAK_BF16 = 67e12, 3.35e12, 989e12
 _PALLAS = "semanticsegmentationactivelearning_tpu/ops/pallas_kernels.py"
 _CSRC = "semanticsegmentationactivelearning_tpu_torch/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -114,7 +140,18 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "icnet_front": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3189"),
     "icnet_cff2_head_score": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:3604"),
     "icnet_head8_score": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:198"),
+    "icnet_cff2_head_predict": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:3677"),
+    "icnet_head8_predict": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:267"),
+    "probe_launch": (f"{_CSRC}/probe_launch.cu",
+                     "tools/probe_pallas_overhead.py:81"),
+    "probe_matmul": (f"{_CSRC}/probe_matmul.cu",
+                     "tools/probe_mosaic_floor.py:103 and "
+                     "tools/probe_front_packing.py:134"),
 }
+# phase 8a's classifiers: x5 already decides >99.9% of pixels at the
+# 1e-3 margin (measured on the CPU at 256x512); x25 is ENet's Final scale
+ICNET_PREDICT_SCALES = (ICNET_CLS_SCALE, 25.0)
+RIG_TOL = {"bf16": 1e-2, "fp32": 1e-5}  # |k - p| / sum of magnitudes
 # appended to each child script: fail if it imported JAX or the JAX
 # package
 JAX_SIDE = ("jax", "flax", "optax", "semanticsegmentationactivelearning_tpu")
@@ -398,13 +435,7 @@ def serve(model_state: dict, seed: int):
     if out.shape != (N, H, W) or out.dtype != torch.uint8 \
             or out.device.type != "cuda":
         raise AssertionError(f"served maps: {out.shape} {out.dtype}")
-    with torch.inference_mode():
-        logits = model(stacks[0].float() / 255.0)
-    if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite logits")
-    want, decided = decided_labels(logits, 1e-3)
-    bad = int(((out.long() != want) & decided).sum().item())
-    frac = decided.float().mean().item()
+    bad, count, frac = served_disagreement(model, stacks[0], out)
     print(f"serve: kernel chain {kernel_ms:.3f} ms/batch, plain chain "
           f"{plain_ms:.3f} ms/batch (median of {BATCHES - WARMUP}); "
           f"{bad} decided pixels differ from the plain forward "
@@ -413,16 +444,18 @@ def serve(model_state: dict, seed: int):
     # slightly different inputs (fp32 sums in another order), so a pool
     # window whose top two values nearly tie may pick another switch and
     # move an unpooled value; allow such flips on 1e-4 of the pixels.
-    if bad > 1e-4 * decided.sum().item() or frac < 0.99:
+    if bad > 1e-4 * count or frac < 0.99:
         raise AssertionError("served maps disagree with the plain forward")
     return launches, kernel_ms, plain_ms, model
 
 
-def run_cli(model, seed: int) -> None:
-    """The port's inference CLI on four 1024x2048 records. The records
-    are written, and read by the CLI, with the port's TFRecord and
-    example modules; both run in child processes, which check at their
-    end that they imported neither JAX nor the JAX package."""
+def run_cli(model, seed: int, name: str = "ENet", sizes=(None,)) -> None:
+    """The port's inference CLI on four 1024x2048 records, once for each
+    ``--output-size`` in ``sizes`` (None: the records' own size). The
+    records are written, and read by the CLI, with the port's TFRecord
+    and example modules; both run in child processes, which check at
+    their end that they imported neither JAX nor the JAX package. The
+    checkpoint's config.json names ``name``, as a training run's does."""
     from semanticsegmentationactivelearning_tpu_torch.train import (
         checkpoint)
     writer = (
@@ -454,23 +487,34 @@ def run_cli(model, seed: int) -> None:
         "        raise\n"
         + LEAK_CHECK)
     with tempfile.TemporaryDirectory() as tmp:
-        rec, out = os.path.join(tmp, "rec"), os.path.join(tmp, "out")
+        rec, run = os.path.join(tmp, "rec"), os.path.join(tmp, "run")
         os.makedirs(rec)
-        ck = checkpoint.save_checkpoint(os.path.join(tmp, "m.ckpt"), model)
+        os.makedirs(run)
+        with open(os.path.join(run, "config.json"), "w") as fp:
+            json.dump({"network": {"model": name}}, fp)
+        ck = checkpoint.save_checkpoint(os.path.join(run, "m.ckpt"), model)
         subprocess.run([sys.executable, "-c", writer, rec, str(seed)],
                        check=True)
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-c", cli, "-c", ck, "-d", rec, "-o", out,
-             "-t", "cityscapes", "-b", "2"],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise AssertionError("inference CLI failed:\n" + res.stdout
-                                 + res.stderr[-4000:])
-        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
-        print(f"cli: {len(pngs)} PNGs in {time.perf_counter() - t0:.1f} s")
-        if pngs != [f"r{i}.png" for i in range(4)]:
-            raise AssertionError(f"inference CLI wrote {pngs}")
+        for size in sizes:
+            out = os.path.join(tmp, f"out{size}")
+            flags = ["-s", *map(str, size)] if size else []
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c", cli, "-c", ck, "-d", rec, "-o", out,
+                 "-t", "cityscapes", "-b", "2", *flags],
+                capture_output=True, text=True)
+            if res.returncode != 0 or f"Model: {name}" not in res.stderr:
+                raise AssertionError("inference CLI failed:\n" + res.stdout
+                                     + res.stderr[-4000:])
+            pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+            shape = np.asarray(PIL.Image.open(os.path.join(out, pngs[0]))
+                               ).shape if pngs else None
+            print(f"cli ({name}, {' '.join(flags) or 'record size'}): "
+                  f"{len(pngs)} PNGs of {shape} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if pngs != [f"r{i}.png" for i in range(4)] \
+                    or shape != tuple(size or (H, W)):
+                raise AssertionError(f"inference CLI wrote {pngs} {shape}")
 
 
 def score_model(seed: int, final_scale: float, name: str = "ENet"):
@@ -786,14 +830,11 @@ def check_icnet_kernels(seed: int) -> dict:
             wcls, bcls = model.packed("classifier", image.device,
                                       icnet_head.pack_classifier)
             head = icnet_head_flops(IN, h8, w8, CLASSES)
-            # CFF2: the dilated 3x3 and the 1x1 conv, and the separable
-            # 2x upsample of fused16 (3 taps per 1/8-res position)
-            cff2 = 2.0 * IN * h8 * w8 * (9 * 128 + 64 + 3) * 128
             cases = {
                 "icnet_cff2_head_score": (
                     icnet_head.fused_cff2_head8_entropy_score,
                     icnet_head.cff2_head8_entropy_score_plain,
-                    (fused16, f1, model), head + cff2),
+                    (fused16, f1, model), head + cff2_flops(IN, h8, w8)),
                 "icnet_head8_score": (
                     icnet_head.fused_head8_entropy_score,
                     icnet_head.head8_entropy_score_plain,
@@ -910,6 +951,301 @@ def profile_icnet(seed: int) -> None:
                           scored(model, fused), stack)
 
 
+def icnet_head_predict_flops(n: int, h8: int, w8: int, c: int) -> float:
+    """As :func:`icnet_head_flops`, ending in an argmax (one compare a
+    pixel and class) in place of the entropy."""
+    return (icnet_head_flops(n, h8, w8, c)
+            - softmax_flops(n, 8 * h8, 8 * w8, c)
+            + 1.0 * n * 64 * h8 * w8 * c)
+
+
+def cff2_flops(n: int, h8: int, w8: int) -> float:
+    """CFF2's work at 1/8 resolution: the dilated 3x3 and the 1x1 conv,
+    and the separable 2x upsample of fused16 (3 taps a position)."""
+    return 2.0 * n * h8 * w8 * (9 * 128 + 64 + 3) * 128
+
+
+def check_icnet_predict_kernels(seed: int) -> dict:
+    """Phase 8a: each ICNet predict kernel against its plain version on
+    the same inputs (the plain chain's fused16 and fused8 of one seeded
+    batch), at each classifier scale of ICNET_PREDICT_SCALES; timed at
+    the first."""
+    from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_front, icnet_head)
+    rng = np.random.default_rng(seed + 9)
+    image = torch.from_numpy(rng.integers(0, 256, (N, H, W, 3),
+                                          dtype=np.uint8)).cuda()
+    image = image.float() / 255.0
+    h8, w8 = H // 8, W // 8
+    head = icnet_head_predict_flops(N, h8, w8, CLASSES)
+    res = {}
+    for scale in ICNET_PREDICT_SCALES:
+        model = score_model(seed, scale, "ICNet")
+        with torch.no_grad():
+            f1, x_half = icnet_front.icnet_front_plain(image, model)
+            fused16 = model.fuse_to_cff1(model.SharedStem.front(x_half))
+            fused8 = model.CFF2(fused16, f1)[0]
+            wcls, bcls = model.packed("classifier", image.device,
+                                      icnet_head.pack_classifier)
+            logits = xops.resize_bilinear(model.head_pre_logits(fused8),
+                                          (H, W))
+            want, decided = decided_labels(logits, 1e-3)
+            del logits
+            frac = decided.float().mean().item()
+            cases = {
+                "icnet_cff2_head_predict": (
+                    icnet_head.fused_cff2_head8_predict,
+                    icnet_head.cff2_head8_predict_plain,
+                    (fused16, f1, model), head + cff2_flops(N, h8, w8)),
+                "icnet_head8_predict": (
+                    icnet_head.fused_head8_predict,
+                    lambda f8, wc, bc, c: icnet_head.head8_predict_plain(
+                        f8, wc, bc),
+                    (fused8, wcls, bcls, CLASSES), head),
+            }
+            for name, (fused, plain, args, flops) in cases.items():
+                got = fused(*args)
+                diff = (got.long() - want).abs()[decided]
+                bad = int((diff != 0).sum().item())
+                print(f"{name} (classifier x{scale:g}): {bad} decided labels "
+                      f"differ ({frac:.5f} of pixels decided at margin 1e-3)")
+                if bad or frac < 0.99 or got.shape != (N, H, W):
+                    raise AssertionError(f"{name} labels disagree with the "
+                                         "plain ones")
+                r = res.setdefault(name, dict(max_abs_err=0.0))
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       float(diff.max().item()))
+                if len(r) == 1:  # time at the first scale only
+                    r["ms"] = cuda_ms(lambda: fused(*args))
+                    r["plain_ms"] = cuda_ms(lambda: plain(*args))
+                    r.update(roofline(args, (got,), flops))
+            if scale == ICNET_CLS_SCALE:
+                # the score twins on the same inputs: their cost at batch 2
+                cff2_ms = cuda_ms(
+                    lambda: icnet_head.fused_cff2_head8_entropy_score(
+                        fused16, f1, model))
+                head_ms = cuda_ms(
+                    lambda: icnet_head.fused_head8_entropy_score(
+                        fused8, wcls, bcls, CLASSES))
+                print(f"score twins at batch {N}: CFF2 + head {cff2_ms:.3f} "
+                      f"ms, head {head_ms:.3f} ms")
+        del f1, x_half, fused16, fused8, want, decided
+    for k, r in res.items():
+        print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
+              f"(batch {N}, {H}x{W})")
+    return res
+
+
+def icnet_plain_predict(model, lut, stack):
+    """ICNet's serving chain through the plain versions of its kernels."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_front, icnet_head)
+    with torch.inference_mode():
+        image = stack.float().div_(255.0)
+        f1, stem1 = icnet_front.icnet_front_stem_plain(image, model)
+        labels = icnet_head.cff2_head8_predict_plain(
+            model.fuse_to_cff1(stem1), f1, model)
+        return lut[labels.long()]
+
+
+def served_disagreement(model, stack, out) -> tuple:
+    """(decided pixels whose label differs from the plain forward's, the
+    decided count, the decided share) of the maps ``out`` of ``stack``."""
+    with torch.inference_mode():
+        logits = model(stack.float() / 255.0)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    want, decided = decided_labels(logits, 1e-3)
+    bad = int(((out.long() != want) & decided).sum().item())
+    count = int(decided.sum().item())
+    return bad, count, count / decided.numel()
+
+
+def serve_icnet(seed: int):
+    """Phase 8b, ICNet's serving path: make_predict_fn over uint8
+    batches fed by device_prefetch; then one batch each through the
+    fuse_cff2=False and fuse_stem=False routes. Returns (the predict
+    kernels' launch counts, kernel ms/batch, plain ms/batch, the
+    model)."""
+    from semanticsegmentationactivelearning_tpu_torch.inference import (
+        make_predict_fn)
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_front, icnet_head)
+    model = score_model(seed, ICNET_CLS_SCALE, "ICNet")
+    lut = torch.arange(256, dtype=torch.uint8, device="cuda")
+    predict = make_predict_fn(model, lut, H, W, 3, torch.device("cuda"))
+    rng = np.random.default_rng(seed + 10)
+    host = [{"stack": rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)}
+            for _ in range(BATCHES)]
+    wrappers = {"icnet_front_stem": icnet_front.fused_icnet_front_stem,
+                "icnet_cff2_head_predict": icnet_head.fused_cff2_head8_predict,
+                "icnet_front": icnet_front.fused_icnet_front,
+                "icnet_head8_predict": icnet_head.fused_head8_predict}
+    for fn in wrappers.values():
+        fn.launches = 0
+    stacks, outs, times = [], [], []
+    for stack in prefetched(host, stacks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(predict(stack))
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict(icnet_front_stem=BATCHES, icnet_cff2_head_predict=BATCHES,
+                icnet_front=0, icnet_head8_predict=0)
+    print(f"icnet serve: {len(outs)} batches, launches {launches} "
+          f"(expected {want})")
+    if launches != want:
+        raise AssertionError("the ICNet serving run did not go front+stem "
+                             "-> CFF2 + head predict once per batch")
+    kernel_ms = float(np.median([s.elapsed_time(e)
+                                 for s, e in times[WARMUP:]]))
+    ptimes = []
+    for stack in stacks:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        icnet_plain_predict(model, lut, stack)
+        end.record()
+        ptimes.append((start, end))
+    torch.cuda.synchronize()
+    plain_ms = float(np.median([s.elapsed_time(e)
+                                for s, e in ptimes[WARMUP:]]))
+    out = outs[0]
+    if out.shape != (N, H, W) or out.dtype != torch.uint8:
+        raise AssertionError(f"served maps: {out.shape} {out.dtype}")
+    bad, count, frac = served_disagreement(model, stacks[0], out)
+    print(f"icnet serve: kernel chain {kernel_ms:.3f} ms/batch "
+          f"({1e3 * N / kernel_ms:.1f} images/s), plain chain "
+          f"{plain_ms:.3f} ms/batch ({1e3 * N / plain_ms:.1f} images/s) "
+          f"(median of {BATCHES - WARMUP}, batch {N}, {H}x{W}); {bad} "
+          f"decided pixels differ from the plain forward ({frac:.5f} "
+          f"decided)")
+    # as in phase 4: the chains feed each stage slightly different fp32
+    # inputs, so a near-tied max-pool window may move a value
+    if bad > 1e-4 * count or frac < 0.99:
+        raise AssertionError("served ICNet maps disagree with the plain "
+                             "forward")
+
+    # the other two routes, one batch each, counted together
+    image = stacks[0].float() / 255.0
+    for fn in wrappers.values():
+        fn.launches = 0
+    for kw in (dict(fuse_cff2=False), dict(fuse_stem=False)):
+        labels = model.fused_predict(image, **kw)
+        torch.cuda.synchronize()
+        bad, count, _ = served_disagreement(model, stacks[0], labels)
+        print(f"icnet serve: fused_predict({kw}): {bad} decided pixels "
+              f"differ from the plain forward")
+        if bad > 1e-4 * count:
+            raise AssertionError(f"the ICNet serving route {kw} failed")
+    routes = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict(icnet_front_stem=1, icnet_cff2_head_predict=0, icnet_front=1,
+                icnet_head8_predict=2)
+    print(f"icnet serve: the two routes launched {routes} (expected {want})")
+    if routes != want:
+        raise AssertionError("the ICNet serving routes did not launch their "
+                             "kernels")
+    return (dict(icnet_cff2_head_predict=launches["icnet_cff2_head_predict"],
+                 icnet_head8_predict=routes["icnet_head8_predict"]),
+            kernel_ms, plain_ms, model)
+
+
+def profile_icnet_serving(model) -> None:
+    """Phase 8d: ICNet's serving chain, kernel and plain, as phase 6."""
+    from semanticsegmentationactivelearning_tpu_torch.inference import (
+        make_predict_fn)
+    lut = torch.arange(256, dtype=torch.uint8, device="cuda")
+    predict = make_predict_fn(model, lut, H, W, 3, torch.device("cuda"))
+    stack = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 256, (N, H, W, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        for label, fn in (("icnet serve kernel chain", predict),
+                          ("icnet serve plain chain",
+                           lambda s: icnet_plain_predict(model, lut, s))):
+            profile_chain(f"{label} (batch {N}, {H}x{W})", fn, stack)
+
+
+def rig_check(name: str, got, want, scale, tol: float) -> float:
+    """|got - want| <= tol * scale elementwise; returns the largest
+    |got - want|."""
+    err = (got - want).abs()
+    worst = (err / scale).max().item()
+    print(f"{name}: max |k-p| {err.max().item():.3e}, at most "
+          f"{worst:.2e} of the magnitudes summed (tolerance {tol:g})")
+    if not worst <= tol:
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             "version")
+    return err.max().item()
+
+
+def run_rigs(seed: int):
+    """Phase 9: each rig run once through its script at its default
+    size (the counters zeroed before), then each rig kernel against its
+    plain version on the scripts' inputs. Returns (per-kernel results,
+    launch counts)."""
+    from semanticsegmentationactivelearning_tpu_torch.tools import (
+        probe_front_packing, probe_launch_overhead, probe_matmul_floor, rigs)
+    rigs.probe_launch.launches = rigs.probe_matmul.launches = 0
+    launch = probe_launch_overhead.main(["--seed", str(seed)])
+    floor = probe_matmul_floor.main(["--seed", str(seed)])
+    packing = probe_front_packing.main(["--seed", str(seed)])
+    launches = dict(probe_launch=rigs.probe_launch.launches,
+                    probe_matmul=rigs.probe_matmul.launches)
+    print(f"rigs: launches {launches}")
+
+    # the launch rig (its script's defaults)
+    y, sw, m1, consts = rigs.launch_inputs(16, 128, 256, 41, seed, "cuda")
+    got = rigs.probe_launch(y, sw, m1, consts, 16)
+    want = rigs.probe_launch_plain(y, sw, m1, consts, 16)
+    scale = rigs.probe_launch_plain(y.abs(), sw.abs(), m1.abs(),
+                                    [c.abs() for c in consts], 16)
+    err = max(rig_check(f"probe_launch {what}", g, w, s, RIG_TOL["fp32"])
+              for what, g, w, s in zip(("centre", "reads"), got, want, scale))
+    nbytes = sum(t.numel() * 4 for t in (y, sw, m1, *consts, *got))
+    res = {"probe_launch": dict(
+        max_abs_err=err, ms=launch["41 consts"]["ms"],
+        plain_ms=cuda_ms(lambda: rigs.probe_launch_plain(y, sw, m1, consts,
+                                                         16)),
+        bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes")}
+    del y, sw, m1, consts, got, want, scale
+
+    # the matmul-stream rig: the two scripts' cases at their defaults
+    cases = [(d, mode, 1536, 128, 123, mode) for d in ("bf16", "fp32")
+             for mode in ("indep", "chain", "prelu")]
+    cases += [(d, "base", 512, 128, 108, "chain") for d in ("bf16", "fp32")]
+    cases += [(d, "nside", 4096, 16, 12, "nside") for d in ("bf16", "fp32")]
+    errs, plain_ms = [], {}
+    for dname, label, rows, n_cols, m, mode in cases:
+        a, w = rigs.matmul_inputs(64, rows, n_cols, rigs.dtype_named(dname),
+                                  seed, "cuda")
+        got = rigs.probe_matmul(a, w, m, mode)
+        final = rigs.matmul_final_plain(a, w, m, mode)
+        errs.append(rig_check(f"probe_matmul {dname} {label}", got,
+                              final.sum(dim=1), final.abs().sum(dim=1),
+                              RIG_TOL[dname]))
+        plain_ms[dname, label] = cuda_ms(
+            lambda: rigs.probe_matmul_plain(a, w, m, mode))
+        print(f"probe_matmul {dname} {label}: plain version "
+              f"{plain_ms[dname, label]:.4f} ms")
+        if (dname, label) == ("bf16", "chain"):  # the entry's numbers
+            bound_ms = 1e3 * rigs.matmul_flops(a, w, m) / PEAK_BF16
+        del a, w, got, final
+    res["probe_matmul"] = dict(
+        max_abs_err=max(errs), ms=floor["bf16 chain"]["ms"],
+        plain_ms=plain_ms["bf16", "chain"], bound_ms=bound_ms,
+        bound_by="operations")
+    for k, r in floor.items():
+        print(f"rig floor {k}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s")
+    for k, r in packing.items():
+        print(f"rig packing {k}: {r}")
+    return res, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -975,6 +1311,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     profile_icnet(args.seed)
 
+    # 8. ICNet serving
+    torch.cuda.empty_cache()
+    per_kernel.update(check_icnet_predict_kernels(args.seed))
+    torch.cuda.empty_cache()
+    serve_launches, icnet_serve_ms, icnet_serve_plain_ms, icnet = \
+        serve_icnet(args.seed)
+    launches.update(serve_launches)
+    run_cli(icnet, args.seed, "ICNet", sizes=(None, (H // 2, W // 2)))
+    profile_icnet_serving(icnet)
+    del icnet
+
+    # 9. the rigs
+    torch.cuda.empty_cache()
+    rig_results, rig_launches = run_rigs(args.seed)
+    per_kernel.update(rig_results)
+    launches.update(rig_launches)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
         raise AssertionError(f"imported JAX or the JAX package: {leaked}")
@@ -995,6 +1348,9 @@ def main(argv=None) -> int:
           f" ms/batch (batch {SN}, {SH}x{SW}, ENet-{CLASSES}; {smi})")
     print(f"icnet score: kernel {icnet_ms:.3f} ms/batch, plain "
           f"{icnet_plain_ms:.3f} ms/batch (batch {IN}, {IH}x{IW}, "
+          f"ICNet-{CLASSES}; {smi})")
+    print(f"icnet serve: kernel {icnet_serve_ms:.3f} ms/batch, plain "
+          f"{icnet_serve_plain_ms:.3f} ms/batch (batch {N}, {H}x{W}, "
           f"ICNet-{CLASSES}; {smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))

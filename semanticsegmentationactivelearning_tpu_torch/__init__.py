@@ -2,8 +2,10 @@
 system. ``semanticsegmentationactivelearning_tpu`` (JAX) is the
 reference; this package imports ``torch`` and never ``jax``.
 
-The first slice is ENet serving: ``models.ENet.fused_predict`` runs the
+Serving and pool scoring run for ENet and ICNet:
+``models.{ENet,ICNet}.fused_predict`` and ``fused_score`` run the
 hand-written Hopper kernels of ``ops/kernels`` (sources in ``csrc/``)
 on CUDA tensors and their plain PyTorch versions on CPU tensors;
-``inference`` is the serving CLI.
+``inference`` is the serving CLI, ``train.steps.make_score_step`` the
+scoring step, and ``tools`` holds the measurement rigs.
 """

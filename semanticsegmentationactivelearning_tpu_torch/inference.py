@@ -3,21 +3,24 @@ prediction PNGs (the counterpart of the JAX package's root
 ``inference.py``).
 
     python -m semanticsegmentationactivelearning_tpu_torch.inference \\
-        -c CKPT -d DATA_DIR -o OUT -t cityscapes [-b BATCH] [--color] \\
-        [--device {cuda,cpu}]
+        -c CKPT -d DATA_DIR -o OUT -t cityscapes [-m {ENet,ICNet}] \\
+        [-b BATCH] [-s H W] [--color] [--device {cuda,cpu}]
 
 Reads every ``.tfrecord`` under the data directory (or its test/
 subdirectory), serves each batch through :func:`make_predict_fn` on
-the first CUDA device (the hand-written kernel chain; without a CUDA
-device it raises) or, with ``--device cpu``, on the CPU (the plain
-PyTorch chain), and writes
+the first CUDA device (the hand-written kernel chain of ENet or ICNet;
+without a CUDA device it raises) or, with ``--device cpu``, on the CPU
+(the plain PyTorch chain), and writes
 ``{output}/{id}.png`` with the dataset-id reverse embedding (default)
 or the colormap (``--color``). ``-c`` takes a port checkpoint or one
-written by the JAX package.
+written by the JAX package. ``--output-size H W`` serves through the
+plain forward instead: the class probabilities are resized to H x W
+(antialiased on the way down, as ``jax.image.resize``) before the
+argmax.
 
 Not ported yet (each raises and names its ROADMAP.md item):
-``--output-size``, ``--modalities`` and ``--view``. Serving uses one
-device; multi-GPU serving is not ported either.
+``--modalities`` and ``--view``. Serving uses one device; multi-GPU
+serving is not ported either.
 """
 
 from __future__ import annotations
@@ -33,34 +36,32 @@ import torch
 
 from .data.device_prefetch import device_prefetch
 from .models import get_model
+from .ops import nn as xops
 from .train import checkpoint as ckpt
 
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    "size": "--output-size (bilinear resize of the class probabilities; "
-            "a downsample must be antialiased like jax.image.resize) is "
-            "not ported yet: ROADMAP.md Queue 1 item 7",
     "modalities": "--modalities (extra input planes, no fused front for "
                   "them) is not ported yet: ROADMAP.md Queue 1 item 7",
     "view": "--view (the live matplotlib viewer) is not ported yet: "
             "ROADMAP.md Queue 1 item 7",
 }
-# ICNet scores pool images in the port but does not serve yet
-ICNET_SERVING = ("serving ICNet is not ported yet: it needs the "
-                 "ICNet-serving slice, the predict kernels "
-                 "fused_cff2_head8_predict and fused_head8_predict "
-                 "(ROADMAP.md Queue 2 items 8 and 9)")
 
 
 def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
-                    in_channels: int, device):
+                    in_channels: int, device, out_hw=None):
     """The serving hot path: a uint8 record stack ``[B, H, W, >=C]`` on
     ``device`` -> uint8 label (or colormap) maps cropped to
     ``height x width``, all on ``device``. The forward is
-    ``model.fused_predict``: the kernel chain on CUDA, its plain
-    version on the CPU. argmax(logits) equals the reference's
-    argmax after softmax."""
+    ``model.fused_predict`` (ENet's or ICNet's): the kernel chain on
+    CUDA, its plain version on the CPU. argmax(logits) equals the
+    reference's argmax after softmax.
+
+    With ``out_hw`` the maps are ``out_hw`` instead, as the JAX
+    ``make_predict_fn(out_hw=...)`` computes them: the plain forward,
+    the logits cropped to ``height x width``, softmax, a bilinear resize
+    of the probabilities (antialiased on the way down), argmax."""
     device = torch.device(device)
     model = model.to(device).eval()
     lut = lut.to(device)
@@ -68,8 +69,11 @@ def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
     @torch.inference_mode()
     def predict(stack: torch.Tensor) -> torch.Tensor:
         image = stack[..., :in_channels].float().div_(255.0).contiguous()
-        pred = model.fused_predict(image)
-        return lut[pred[:, :height, :width].long()]
+        if out_hw is None:
+            pred = model.fused_predict(image)
+            return lut[pred[:, :height, :width].long()]
+        prob = torch.softmax(model(image)[:, :height, :width], dim=-1)
+        return lut[xops.resize_bilinear(prob, out_hw).argmax(dim=-1)]
 
     return predict
 
@@ -127,8 +131,6 @@ def main(args) -> int:
         if getattr(args, flag):
             raise NotImplementedError(message)
     model_name = _resolve_model_name(args)
-    if model_name.lower() == "icnet":
-        raise NotImplementedError(ICNET_SERVING)
     device = _serving_device(args.device)
     # the record reader, dataset tables and PNG writer (the loader and
     # the writer pull in PIL); imported here so that make_predict_fn's
@@ -169,17 +171,22 @@ def main(args) -> int:
     lut = dataset.colormap if args.color else dataset.embedding_reversed
     if np.ndim(lut) != 1 and not args.color:
         lut = dataset.colormap  # color-coded datasets reverse-embed to it
-    if device.type == "cuda":
+    out_hw = tuple(args.size) if args.size else None
+    if out_hw is not None:
+        logger.info("Serving on %s through the plain forward, as "
+                    "--output-size %dx%d asks", device, *out_hw)
+    elif device.type == "cuda":
         logger.info("Serving on %s (kernel chain)",
                     torch.cuda.get_device_name(device))
-        if torch.cuda.device_count() > 1:
-            logger.info("Serving on one of %d GPUs; multi-GPU serving is "
-                        "not ported yet (ROADMAP.md Queue 1 item 10)",
-                        torch.cuda.device_count())
     else:
         logger.info("Serving on the CPU (plain chain), as --device cpu asks")
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        logger.info("Serving on one of %d GPUs; multi-GPU serving is not "
+                    "ported yet (ROADMAP.md Queue 1 item 10)",
+                    torch.cuda.device_count())
     predict = make_predict_fn(model, torch.as_tensor(np.asarray(lut)),
-                              height, width, rec_loader.channels, device)
+                              height, width, rec_loader.channels, device,
+                              out_hw)
 
     written = 0
     with png_writer.AsyncPngWriter() as writer:
@@ -221,7 +228,9 @@ def parse_arguments(argv=None):
                              "to the checkpoint, else ENet.")
     parser.add_argument("-s", "--output-size", type=int, nargs=2,
                         dest="size", default=None,
-                        help="Size of the output images (not ported yet).")
+                        help="Size of the output images: the class "
+                             "probabilities of the plain forward are "
+                             "resized to it before the argmax.")
     parser.add_argument("--color", action="store_true", default=False,
                         dest="color")
     parser.add_argument("--modalities", type=str, nargs="+", default=[],

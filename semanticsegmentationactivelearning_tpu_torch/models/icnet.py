@@ -23,11 +23,11 @@ Submodules carry the flax names (``Branch1_1``, ``SharedStem``,
 eval forward only (running statistics). Input H and W must be multiples
 of 32. The seams the kernels plug into are ``fuse_from_front``,
 ``fuse_to_cff1``, ``fuse_from_stem1`` and ``head_pre_logits``;
-:meth:`ICNet.fused_score` routes the acquisition score through the
-front (+stem) and head kernels of ``ops/kernels``. Not ported: the
+:meth:`ICNet.fused_score` routes the acquisition score, and
+:meth:`ICNet.fused_predict` the served labels, through the front
+(+stem) and head kernels of ``ops/kernels``. Not ported: the
 ``conv_impl`` lowerings, the phase-domain logits, ``_resize_bilinear_up2``
-and ``spatial_front_score`` (ROADMAP), and serving through
-``fused_predict`` (the ICNet-serving slice).
+and ``spatial_front_score`` (ROADMAP).
 """
 
 from __future__ import annotations
@@ -269,6 +269,50 @@ class ICNet(PackedModel):
         return icnet_head.head_pre_logits(fused8, cls.weight[:, :, 0, 0].t(),
                                           cls.bias)
 
+    def _fused_to_head(self, image: torch.Tensor, fuse_stem: bool,
+                       fuse_cff2: bool):
+        """The kernel chain up to the head, shared by :meth:`fused_score`
+        and :meth:`fused_predict`: ``(fused16, f1)`` when the CFF2 + head
+        kernel ends it, else ``(fused8, None)`` for the head kernel."""
+        if fuse_stem:
+            f1, stem1 = icnet_front.fused_icnet_front_stem(image, self)
+            if fuse_cff2:
+                return self.fuse_to_cff1(stem1), f1
+            return self.fuse_from_stem1(f1, stem1), None
+        f1, x_half = icnet_front.fused_icnet_front(image, self)
+        return self.fuse_from_front(f1, x_half), None
+
+    @torch.no_grad()
+    def fused_predict(self, image: torch.Tensor, fuse_stem: bool = True,
+                      fuse_cff2: bool = True) -> torch.Tensor:
+        """Per-pixel argmax labels, int32 ``[N, H, W]``, without
+        full-resolution logits in memory: the serving forward
+        (reference inference.py:90-98), routed as the JAX
+        ``ICNet.fused_predict`` routes it. On a CUDA tensor each route
+        runs the hand-written kernels, on a CPU tensor their plain
+        versions.
+
+        The front+stem kernel, the plain stem res-blocks, tail and CFF1,
+        then the CFF2 + head predict kernel; with ``fuse_cff2=False`` the
+        plain CFF2 and the head predict kernel; with ``fuse_stem=False``
+        the front kernel, the plain stem, tail and CFFs, then the head
+        predict kernel. Needs a 3-channel image with H and W multiples
+        of 32."""
+        _, h, w, c = image.shape
+        if c != 3 or h % 32 or w % 32:
+            raise ValueError(
+                f"ICNet fused_predict needs [N,H,W,3] with H, W divisible "
+                f"by 32, got {tuple(image.shape)}")
+        x, f1 = self._fused_to_head(image, fuse_stem, fuse_cff2)
+        if f1 is not None:
+            labels = icnet_head.fused_cff2_head8_predict(x, f1, self)
+        else:
+            wcls, bcls = self.packed("classifier", image.device,
+                                     icnet_head.pack_classifier)
+            labels = icnet_head.fused_head8_predict(x, wcls, bcls,
+                                                    self.num_classes)
+        return labels.to(torch.int32)
+
     @torch.no_grad()
     def fused_score(self, image: torch.Tensor, measure: str,
                     fuse_stem: bool = True, fuse_cff2: bool = True
@@ -292,19 +336,13 @@ class ICNet(PackedModel):
             raise ValueError(
                 f"ICNet input dims must be divisible by 32, got {h}x{w}")
         if measure == "entropy" and c == 3:
-            if fuse_stem:
-                f1, stem1 = icnet_front.fused_icnet_front_stem(image, self)
-                if fuse_cff2:
-                    return icnet_head.fused_cff2_head8_entropy_score(
-                        self.fuse_to_cff1(stem1), f1, self)
-                fused8 = self.fuse_from_stem1(f1, stem1)
-            else:
-                f1, x_half = icnet_front.fused_icnet_front(image, self)
-                fused8 = self.fuse_from_front(f1, x_half)
+            x, f1 = self._fused_to_head(image, fuse_stem, fuse_cff2)
+            if f1 is not None:
+                return icnet_head.fused_cff2_head8_entropy_score(x, f1, self)
             wcls, bcls = self.packed("classifier", image.device,
                                      icnet_head.pack_classifier)
             return icnet_head.fused_head8_entropy_score(
-                fused8, wcls, bcls, self.num_classes)
+                x, wcls, bcls, self.num_classes)
         cls4 = self(image, return_pre_logits=True)
         return acquisition.chunked_upsample_mean_confidence(
             cls4, 4, measure, self.num_classes)

@@ -5,13 +5,14 @@ the JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -o addopts="" -m cuda \\
         tests/test_torch_cuda.py -q
 
-Each kernel (ENet's and ICNet's) is held against its plain PyTorch
-version on the same inputs, with TF32 off on both sides: features rtol
-= atol = 1e-4 (ICNet's half-res image 1e-5);
+Each kernel (ENet's, ICNet's and the rigs') is held against its plain
+PyTorch version on the same inputs, with TF32 off on both sides:
+features rtol = atol = 1e-4 (ICNet's half-res image 1e-5);
 switches exact where the pooled window's top-2 gap exceeds 1e-4;
 labels exact where the top-2 logit margin exceeds 1e-3; per-image
 scores |difference| <= 1e-4 (means over the pixels, summed in another
-order)."""
+order); the rigs' sums within 1e-5 (fp32) or 1e-2 (bf16, rounded
+between chained products) of the sum of the magnitudes they add up."""
 
 import numpy as np
 import pytest
@@ -23,9 +24,11 @@ from semanticsegmentationactivelearning_tpu_torch.inference import (
     make_predict_fn)
 from semanticsegmentationactivelearning_tpu_torch.models import ENet, ICNet
 from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
+from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
 from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
     deconv_score, decoder, front, icnet_front, icnet_head, mid, packing,
     tail)
+from semanticsegmentationactivelearning_tpu_torch.tools import rigs
 from semanticsegmentationactivelearning_tpu_torch.train.steps import (
     make_score_step)
 
@@ -358,3 +361,136 @@ def test_icnet_score_step_through_device_prefetch(icnet):
         assert got.is_cuda and got.shape == (2,)
         assert (got - want).abs().max().item() <= 1e-4
     assert icnet_head.fused_cff2_head8_entropy_score.launches == launches + 2
+
+
+# -- ICNet serving ---------------------------------------------------------
+
+def _labels_agree(labels, logits):
+    """Labels equal the argmax where the top-2 margin exceeds 1e-3, and
+    that is most pixels."""
+    decided = _decided(logits)
+    assert decided.float().mean() > 0.99
+    assert torch.equal(labels.long()[decided], logits.argmax(-1)[decided])
+
+
+@pytest.mark.parametrize("shape", ICNET_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_icnet_predict_kernels_match_plain_versions(icnet, shape):
+    """The CFF2 + head and head predict kernels on the plain chain's
+    fused16 / fused8, on random inputs (a transposed phase would pass on
+    a constant image), ragged tiles (W/8 = 20, 44) and one tile."""
+    image = _image(shape, 13)
+    n, h, w, _ = shape
+    with torch.no_grad():
+        f1, x_half = icnet_front.icnet_front_plain(image, icnet)
+        fused16 = icnet.fuse_to_cff1(icnet.SharedStem.front(x_half))
+        fused8 = icnet.CFF2(fused16, f1)[0]
+        logits = xops.resize_bilinear(icnet.head_pre_logits(fused8), (h, w))
+        wcls, bcls = icnet.packed("classifier", image.device,
+                                  icnet_head.pack_classifier)
+        for labels in (icnet_head.fused_cff2_head8_predict(fused16, f1, icnet),
+                       icnet_head.fused_head8_predict(fused8, wcls, bcls, C)):
+            assert labels.dtype == torch.int8 and labels.shape == (n, h, w)
+            _labels_agree(labels, logits)
+
+
+ICNET_PREDICT_ROUTES = [
+    ("default", {}, ("front_stem", "cff2_head")),
+    ("no_cff2", dict(fuse_cff2=False), ("front_stem", "head8")),
+    ("no_stem", dict(fuse_stem=False), ("front", "head8")),
+]
+
+
+@pytest.mark.parametrize("name, flags, route", ICNET_PREDICT_ROUTES,
+                         ids=[r[0] for r in ICNET_PREDICT_ROUTES])
+def test_icnet_fused_predict_routes_count_their_launches(icnet, name, flags,
+                                                         route):
+    image = _image((2, 64, 96, 3), 14)
+    wrappers = {"front": icnet_front.fused_icnet_front,
+                "front_stem": icnet_front.fused_icnet_front_stem,
+                "cff2_head": icnet_head.fused_cff2_head8_predict,
+                "head8": icnet_head.fused_head8_predict}
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    labels = icnet.fused_predict(image, **flags)
+    torch.cuda.synchronize()
+    rose = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    assert rose == {k: int(k in route) for k in wrappers}
+    assert labels.dtype == torch.int32 and labels.shape == (2, 64, 96)
+    with torch.no_grad():
+        logits = icnet(image)
+    decided = _decided(logits)
+    # the chain feeds each stage slightly different fp32 inputs than the
+    # plain forward, so a near-tied max-pool window may flip
+    agree = (labels.long() == logits.argmax(-1))[decided].float().mean()
+    assert agree > 0.999
+
+
+def test_icnet_serving_through_device_prefetch(icnet):
+    lut = torch.arange(256, dtype=torch.uint8)
+    predict = make_predict_fn(icnet, lut, 60, 90, 3, "cuda")
+    rng = np.random.default_rng(15)
+    host = [{"stack": rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)}
+            for _ in range(2)]
+    launches = icnet_head.fused_cff2_head8_predict.launches
+    for b, src in zip(device_prefetch(iter(host), "cuda"), host):
+        out = predict(b["stack"])
+        assert out.dtype == torch.uint8 and out.shape == (2, 60, 90)
+        want = icnet.fused_predict(
+            torch.from_numpy(src["stack"]).cuda().float() / 255.0)
+        assert torch.equal(out.long(), want[:, :60, :90].long())
+    assert icnet_head.fused_cff2_head8_predict.launches == launches + 4
+
+
+def test_predict_kernels_reject_more_than_127_classes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    big = ICNet(128).cuda().eval()
+    with pytest.raises(ValueError, match="int8"):
+        icnet_head.fused_cff2_head8_predict(
+            torch.zeros(1, 2, 2, 128, device="cuda"),
+            torch.zeros(1, 4, 4, 64, device="cuda"), big)
+    with pytest.raises(ValueError, match="int8"):
+        icnet_head.fused_head8_predict(
+            torch.zeros(1, 4, 4, 128, device="cuda"),
+            torch.zeros(128, 128, device="cuda"),
+            torch.zeros(128, device="cuda"), 128)
+
+
+# -- the rigs --------------------------------------------------------------
+
+def test_launch_rig_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    y, sw, m1, consts = rigs.launch_inputs(2, 16, 24, 5, 0, "cuda")
+    launches = rigs.probe_launch.launches
+    for cs in ([], consts):
+        got = rigs.probe_launch(y, sw, m1, cs, 4)
+        want = rigs.probe_launch_plain(y, sw, m1, cs, 4)
+        scale = rigs.probe_launch_plain(y.abs(), sw.abs(), m1.abs(),
+                                        [c.abs() for c in cs], 4)
+        for g, w_, s in zip(got, want, scale):
+            assert g.shape == (2, 4)
+            assert ((g - w_).abs() <= 1e-5 * s).all()
+    assert rigs.probe_launch.launches == launches + 2
+
+
+# (mode, output columns, dtype, rows, products, relative tolerance)
+RIG_CASES = [(mode, 128, dt, 256, 7, tol)
+             for mode in ("indep", "chain", "prelu")
+             for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5))]
+RIG_CASES += [("nside", 16, torch.bfloat16, 256, 3, 1e-2),
+              ("nside", 16, torch.float32, 1024, 3, 1e-5)]
+
+
+@pytest.mark.parametrize("mode, n_cols, dtype, rows, m, tol", RIG_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_matmul_rig_matches_plain_version(mode, n_cols, dtype, rows, m, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, w = rigs.matmul_inputs(3, rows, n_cols, dtype, 1, "cuda")
+    got = rigs.probe_matmul(a, w, m, mode)
+    final = rigs.matmul_final_plain(a, w, m, mode)
+    assert got.shape == (3,)
+    assert ((got - final.sum(dim=1)).abs() <= tol * final.abs().sum(dim=1)
+            ).all()

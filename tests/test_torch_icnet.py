@@ -2,35 +2,47 @@
 the weight bridge and checkpoints, the rules that the port must follow
 to match XLA (stride-2 SAME padding, the -inf max pool, the antialiased
 downsample, the pyramid pooling windows), the whole forward, the kernel
-seams, ``ICNet.fused_score`` on every route and measure, and
-``make_score_step``. Weights come from one jitted ``ICNet.init`` in JAX
-at ``tests/test_icnet.py``'s 64x96 (a 2-tile grid of every ICNet kernel),
-with noised BatchNorm statistics, through ``train/bridge.py``; the
+seams, ``ICNet.fused_score`` on every route and measure,
+``make_score_step``, ``ICNet.fused_predict`` on every route, and serving
+(``make_predict_fn``, ``--output-size`` and the inference CLI). Weights
+come from one jitted ``ICNet.init`` in JAX at ``tests/test_icnet.py``'s
+64x96 (a 2-tile grid of every ICNet kernel), with noised BatchNorm
+statistics, through ``train/bridge.py``; the
 classifier kernel is scaled by 25 on both sides so that the scores sit
 well away from 0.
 
 On the CPU each kernel wrapper runs its plain version, so the
 ``fused_score`` routes here are the plain chains that the CUDA kernels
-are held against on the card (chip_smoke.py phase 7 and the
+are held against on the card (chip_smoke.py phases 7 and 8 and the
 ``cuda``-marked tests of test_torch_cuda.py).
 
 Tolerances: features rtol 1e-4 / atol 1e-5 and scores rtol 1e-4 / atol
 1e-5, as tests/test_icnet.py holds the Pallas kernels (fp32 sums in
 another order through ~60 conv layers); logits atol 1e-5 times the
-classifier's scale of 25, which multiplies the features' differences."""
+classifier's scale of 25, which multiplies the features' differences;
+labels equal wherever the JAX logits' top-2 margin exceeds 1e-3 (or the
+resized probabilities' 1e-5), on at least 99% of the pixels."""
 
+import io
 import json
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import optax
 
+import inference as jax_inference
+from semanticsegmentationactivelearning_tpu import datasets as jax_datasets
+from semanticsegmentationactivelearning_tpu.data import (
+    example as jax_example)
+from semanticsegmentationactivelearning_tpu.data import (
+    tfrecord as jax_tfrecord)
 from semanticsegmentationactivelearning_tpu.models.icnet import (
     ICNet as JaxICNet, PyramidPooling as JaxPyramidPooling)
 from semanticsegmentationactivelearning_tpu.train import (
@@ -47,7 +59,8 @@ from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
 from semanticsegmentationactivelearning_tpu_torch.train import (
     bridge, checkpoint, steps)
 
-from _torch_parity import icnet_variables, port_icnet, to_numpy_tree
+from _torch_parity import (assert_labels_match, decided, icnet_variables,
+                           port_icnet, to_numpy_tree)
 
 HW = (64, 96)
 C = 5
@@ -102,12 +115,8 @@ def test_jax_checkpoint_restores_icnet(setup, tmp_path):
     """A JAX ICNet TrainState written by the JAX package's checkpoint
     module loads strictly into the port's ICNet."""
     _, variables, tm = setup
-    state = jax_steps.TrainState(
-        params=variables["params"], batch_stats=variables["batch_stats"],
-        opt_state=optax.adam(1e-3).init(variables["params"]),
-        step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
     path = jax_checkpoint.save_checkpoint(str(tmp_path / "model-1.ckpt"),
-                                          state)
+                                          _train_state(variables))
     model = ICNet(C)
     restored = checkpoint.restore_checkpoint(str(tmp_path), model)
     want = tm.state_dict()
@@ -319,19 +328,195 @@ def test_get_model_builds_icnet():
     assert 5.0e6 < n < 1.0e7, n  # as tests/test_icnet.py bounds the JAX one
 
 
-def test_inference_cli_names_the_icnet_serving_slice(tmp_path):
-    """ICNet scores in the port but does not serve yet: the CLI raises
-    before it reads any record and names the slice that serves it."""
+def _train_state(variables):
+    return jax_steps.TrainState(
+        params=variables["params"], batch_stats=variables["batch_stats"],
+        opt_state=optax.adam(1e-3).init(variables["params"]),
+        step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
+
+
+# -- fused_predict and serving ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_labels(setup):
+    """An image batch, the JAX logits and the JAX reference labels,
+    ``fused_predict(use_pallas=False)`` (jitted: the plain forward's
+    argmax)."""
+    jm, variables, _ = setup
+    x = _image((2, *HW, 3), 10)
+    labels = jax.jit(lambda v, x: jm.fused_predict(v, x))(variables,
+                                                          jnp.asarray(x))
+    logits = jax.jit(lambda v, x: jm.apply(v, x, training=False))(
+        variables, jnp.asarray(x))
+    return x, np.asarray(logits), np.asarray(labels)
+
+
+# (route, fused_predict flags, the port wrappers the route takes)
+PREDICT_ROUTES = [
+    ("front_stem_cff2_head", {},
+     ["fused_icnet_front_stem", "fused_cff2_head8_predict"]),
+    ("front_stem_head", dict(fuse_cff2=False),
+     ["fused_icnet_front_stem", "fused_head8_predict"]),
+    ("front_head", dict(fuse_stem=False),
+     ["fused_icnet_front", "fused_head8_predict"]),
+]
+
+
+@pytest.mark.parametrize("route, flags, wrappers", PREDICT_ROUTES,
+                         ids=[r[0] for r in PREDICT_ROUTES])
+def test_fused_predict_route_matches_jax(setup, jax_labels, monkeypatch,
+                                         route, flags, wrappers):
+    """Each route (the wrappers' plain versions on the CPU) against the
+    JAX reference labels, fused_predict(use_pallas=False)."""
+    tm = setup[2]
+    x, logits, want = jax_labels
+    calls = []
+    for mod in (icnet_front, icnet_head):
+        for name in wrappers:
+            if hasattr(mod, name):
+                real = getattr(mod, name)
+                monkeypatch.setattr(
+                    mod, name, lambda *a, _r=real, _n=name, **k:
+                    calls.append(_n) or _r(*a, **k))
+    got = tm.fused_predict(torch.from_numpy(x), **flags)
+    assert calls == wrappers
+    assert got.dtype == torch.int32 and got.shape == (2, *HW)
+    np.testing.assert_array_equal(want, np.argmax(logits, axis=-1))
+    assert_labels_match(got.numpy(), logits, margin=1e-3)
+
+
+def test_fused_predict_matches_the_pallas_chain(setup):
+    """The default route against JAX fused_predict(use_pallas=True) with
+    the front+stem and CFF2 + head predict kernels in interpret mode."""
+    jm, variables, tm = setup
+    x = _image((1, 32, 64, 3), 11)
+    want = jax.jit(lambda v, x: jm.fused_predict(
+        v, x, use_pallas=True, interpret=True))(variables, jnp.asarray(x))
+    got = tm.fused_predict(torch.from_numpy(x))
+    with torch.no_grad():
+        logits = tm(torch.from_numpy(x)).numpy()
+    assert np.asarray(want).dtype == np.int32
+    mask = decided(logits, 1e-3)
+    assert mask.mean() > 0.99
+    np.testing.assert_array_equal(got.numpy()[mask], np.asarray(want)[mask])
+
+
+def test_fused_predict_rejects_bad_shapes(setup):
+    tm = setup[2]
+    with pytest.raises(ValueError, match="divisible by 32"):
+        tm.fused_predict(torch.zeros(1, 48, 96, 3))
+    with pytest.raises(ValueError, match=r"\[N,H,W,3\]"):
+        tm.fused_predict(torch.zeros(1, 32, 32, 4))
+
+
+def _prob_decided(logits, out_hw, margin=1e-5):
+    """Pixels whose resized probabilities' top-2 gap exceeds ``margin``
+    (``logits`` from the port's forward)."""
+    prob = jax.nn.softmax(jnp.asarray(logits), axis=-1)
+    prob = np.asarray(jax.image.resize(
+        prob, (prob.shape[0], *out_hw, prob.shape[-1]), "bilinear"))
+    top2 = np.sort(prob, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > margin
+
+
+@pytest.mark.parametrize("out_hw", [(40, 60), (96, 128)],
+                         ids=["down", "up"])
+def test_output_size_matches_jax(setup, monkeypatch, out_hw):
+    """--output-size on ICNet: the plain forward cropped to the record
+    (60x90 of the 64x96 storage), softmax, a bilinear resize of the
+    probabilities (antialiased down), argmax, against root
+    inference.make_predict_fn(out_hw=...)."""
+    monkeypatch.delenv("SSAL_FUSED_PREDICT", raising=False)
+    jm, variables, tm = setup
+    h, w = 60, 90
+    lut = np.arange(256, dtype=np.uint8)
+    predict, use_fused = jax_inference.make_predict_fn(
+        jm, _train_state(variables), jnp.asarray(lut), h, w, 3, out_hw)
+    assert not use_fused
+    stack = np.random.default_rng(12).integers(0, 256, (2, *HW, 3),
+                                               dtype=np.uint8)
+    want = np.asarray(predict(jnp.asarray(stack)))
+    got = inference.make_predict_fn(tm, torch.from_numpy(lut), h, w, 3,
+                                    "cpu", out_hw)(torch.from_numpy(stack))
+    assert got.dtype == torch.uint8 and got.shape == (2, *out_hw)
+    with torch.no_grad():
+        logits = tm(torch.from_numpy(stack).float() / 255.0)[:, :h, :w]
+    mask = _prob_decided(logits.numpy(), out_hw)
+    assert mask.mean() > 0.99
+    np.testing.assert_array_equal(got.numpy()[mask], want[mask])
+
+
+def _with_classes(variables, c, seed=0):
+    """The variables with classifier columns appended up to ``c`` classes
+    (normal, at the existing columns' spread): the three classifier
+    heads are the only weights that depend on the class count."""
+    rng = np.random.default_rng(seed)
+    params = dict(variables["params"])
+    for name in ("Classifier", "CFF1", "CFF2"):
+        head = params[name] if name == "Classifier" else \
+            params[name]["aux_cls"]
+        k, b = np.asarray(head["kernel"]), np.asarray(head["bias"])
+        extra = c - k.shape[-1]
+        new = {"kernel": jnp.asarray(np.concatenate(
+                   [k, rng.normal(size=(*k.shape[:-1], extra)) * k.std()],
+                   axis=-1).astype(np.float32)),
+               "bias": jnp.asarray(np.concatenate(
+                   [b, np.zeros(extra, np.float32)]))}
+        if name == "Classifier":
+            params[name] = new
+        else:
+            params[name] = {**params[name], "aux_cls": new}
+    return {"params": params, "batch_stats": variables["batch_stats"]}
+
+
+def test_inference_cli_serves_icnet(setup, tmp_path, caplog):
+    """The port's CLI (--device cpu) on ICNet Freiburg records with a
+    JAX-written ICNet checkpoint whose config.json names ICNet, against
+    the JAX make_predict_fn on the same weights: the Freiburg colormap
+    of the labels on decided pixels. Freiburg has 6 classes, so the
+    5-class weights gain a classifier column."""
+    variables = _with_classes(setup[1], 6)
+    jm = JaxICNet(num_classes=6)
     run = tmp_path / "run"
     run.mkdir()
     (run / "config.json").write_text(json.dumps(
         {"network": {"model": "ICNet"}}))
+    jax_checkpoint.save_checkpoint(str(run / "model-1.ckpt"),
+                                   _train_state(variables))
+    rec = tmp_path / "rec"
+    rec.mkdir()
+    rng = np.random.default_rng(13)
+    images = rng.integers(0, 256, (2, *HW, 3), dtype=np.uint8)
+    for i, img in enumerate(images):
+        ex = jax_example.SegExample(
+            file_id=f"r{i}", height=HW[0], width=HW[1],
+            label=_png(np.zeros(HW, np.uint8)),
+            modalities={"image": (_png(img), "png", 3)})
+        jax_tfrecord.write_record_file(str(rec / f"r{i}.tfrecord"),
+                                       jax_example.make_example(ex))
+    caplog.set_level("INFO")
     args = inference.parse_arguments(
-        ["-c", str(run / "model-1.ckpt"), "-d", str(tmp_path / "none"),
-         "-o", str(tmp_path / "o"), "-t", "cityscapes", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ICNet-serving slice"):
-        inference.main(args)
-    with pytest.raises(NotImplementedError, match="fused_head8_predict"):
-        inference.main(inference.parse_arguments(
-            ["-c", "x", "-d", "y", "-o", "z", "-t", "cityscapes", "-m",
-             "ICNet"]))
+        ["-c", str(run / "model-1.ckpt"), "-d", str(rec), "-o",
+         str(tmp_path / "out"), "-t", "freiburg", "-b", "2", "--device",
+         "cpu"])
+    assert inference.main(args) == 0
+    assert "Model: ICNet" in caplog.text
+    colormap = np.asarray(jax_datasets.Freiburg().colormap)
+    predict, _ = jax_inference.make_predict_fn(
+        jm, _train_state(variables), jnp.asarray(colormap), *HW, 3)
+    want = np.asarray(predict(jnp.asarray(images)))
+    with torch.no_grad():
+        logits = port_icnet(variables, 6)(
+            torch.from_numpy(images).float() / 255.0).numpy()
+    mask = decided(logits, 1e-3)
+    assert mask.mean() > 0.99
+    for i in range(2):
+        got = np.asarray(Image.open(tmp_path / "out" / f"r{i}.png"))
+        assert got.shape == (*HW, 3)
+        np.testing.assert_array_equal(got[mask[i]], want[i][mask[i]])
+
+
+def _png(arr):
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()

@@ -1,10 +1,11 @@
-"""The plain versions of the PyTorch port's four ICNet kernels
+"""The plain versions of the PyTorch port's six ICNet kernels
 (ops/kernels/icnet_front.py, icnet_head.py) against the JAX package's
-Pallas kernels, fp32 on the CPU: the front and front+stem kernels and
-the head kernel in interpret mode, the CFF2 + head kernel through the
-JAX composition that tests/test_icnet.py already pins it to (CFF2 by
-``model.apply``, then the head kernel in interpret mode), and
-``chunked_upsample_mean_confidence``, the plain head's tail. Inputs are
+Pallas kernels, fp32 on the CPU: the front and front+stem kernels, the
+head score kernel and both predict kernels in interpret mode, the CFF2 +
+head score kernel through the JAX composition that tests/test_icnet.py
+already pins it to (CFF2 by ``model.apply``, then the head kernel in
+interpret mode), and ``chunked_upsample_mean_confidence``, the plain
+head's tail. Inputs are
 numpy-seeded; the weights are one JAX ``ICNet.init`` at 64x96 (a 2-tile
 grid of the front kernels) with noised BatchNorm statistics, through
 ``train/bridge.py``, the classifier scaled by 25 on both sides.
@@ -16,7 +17,9 @@ test_torch_cuda.py).
 
 Tolerances: features rtol 1e-4 / atol 1e-5 (x_half 1e-5 / 1e-6, one
 resize); scores rtol 1e-4 / atol 1e-5, as tests/test_icnet.py holds the
-Pallas kernels."""
+Pallas kernels; labels equal wherever the plain version's top-2 logit
+margin exceeds 1e-3 (the Pallas kernels sum the nine upsample taps in
+another order than the two resizes), on at least 99% of the pixels."""
 
 import numpy as np
 import pytest
@@ -30,10 +33,11 @@ from semanticsegmentationactivelearning_tpu.ops import (
 from semanticsegmentationactivelearning_tpu.ops import pallas_kernels
 from semanticsegmentationactivelearning_tpu_torch.models import ICNet
 from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
+from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
 from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
     icnet_front, icnet_head)
 
-from _torch_parity import icnet_variables, port_icnet
+from _torch_parity import assert_labels_match, icnet_variables, port_icnet
 
 HW = (64, 96)
 C = 5
@@ -133,6 +137,50 @@ def test_cff2_head_matches_jax_composition(setup):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCORE_TOL)
 
 
+def _head_logits(fused8, tm):
+    """The plain head's full-resolution logits, the decided-pixel rule's
+    reference."""
+    _, h8, w8, _ = fused8.shape
+    return xops.resize_bilinear(tm.head_pre_logits(fused8), (8 * h8, 8 * w8))
+
+
+def test_head8_predict_matches_pallas(setup):
+    """At h8 = 8 the Pallas kernel's grid has two row tiles; random
+    features, so a transposed row or column phase would show."""
+    _, variables, tm = setup
+    f8 = (0.2 * np.maximum(np.random.default_rng(13).normal(
+        size=(2, 8, 12, 128)), 0)).astype(np.float32)
+    want = pallas_kernels.fused_head8_predict(
+        jnp.asarray(f8), *_classifier(variables), C, interpret=True)
+    got = icnet_head.fused_head8_predict(
+        torch.from_numpy(f8), *icnet_head.pack_classifier(tm), C)
+    assert got.dtype == torch.int8 and got.shape == (2, 64, 96)
+    with torch.no_grad():
+        logits = _head_logits(torch.from_numpy(f8), tm).numpy()
+    assert_labels_match(got.numpy(), logits, margin=1e-3)
+    assert_labels_match(np.asarray(want), logits, margin=1e-3)
+
+
+def test_cff2_head_predict_matches_pallas(setup):
+    _, variables, tm = setup
+    rng = np.random.default_rng(14)
+    fused16 = (0.2 * rng.normal(size=(2, 4, 6, 128))).astype(np.float32)
+    f1 = (0.2 * np.maximum(rng.normal(size=(2, 8, 12, 64)), 0)) \
+        .astype(np.float32)
+    want = pallas_kernels.fused_cff2_head8_predict(
+        jnp.asarray(fused16), jnp.asarray(f1),
+        pallas_kernels.pack_icnet_cff2_head(variables, C), C, interpret=True)
+    got = icnet_head.fused_cff2_head8_predict(
+        torch.from_numpy(fused16), torch.from_numpy(f1), tm)
+    assert got.dtype == torch.int8 and got.shape == (2, 64, 96)
+    with torch.no_grad():
+        logits = _head_logits(
+            tm.CFF2(torch.from_numpy(fused16), torch.from_numpy(f1))[0],
+            tm).numpy()
+    assert_labels_match(got.numpy(), logits, margin=1e-3)
+    assert_labels_match(np.asarray(want), logits, margin=1e-3)
+
+
 @pytest.mark.parametrize("measure", ["entropy", "margin", "confidence"])
 @pytest.mark.parametrize("chunk", [2, 3, 32])
 def test_chunked_upsample_matches_jax(measure, chunk):
@@ -181,10 +229,15 @@ def test_wrappers_refuse_other_devices(setup):
         icnet_head.fused_head8_entropy_score(
             torch.empty(1, 4, 4, 128, **meta), torch.empty(128, C, **meta),
             torch.empty(C, **meta), C)
+    for fn in (icnet_head.fused_cff2_head8_entropy_score,
+               icnet_head.fused_cff2_head8_predict):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(torch.empty(1, 2, 2, 128, **meta),
+               torch.empty(1, 4, 4, 64, **meta), tm)
     with pytest.raises(ValueError, match="CUDA"):
-        icnet_head.fused_cff2_head8_entropy_score(
-            torch.empty(1, 2, 2, 128, **meta), torch.empty(1, 4, 4, 64, **meta),
-            tm)
+        icnet_head.fused_head8_predict(
+            torch.empty(1, 4, 4, 128, **meta), torch.empty(128, C, **meta),
+            torch.empty(C, **meta), C)
 
 
 def test_launch_counters_stay_zero_on_cpu(setup):
@@ -192,9 +245,12 @@ def test_launch_counters_stay_zero_on_cpu(setup):
     wrappers = (icnet_front.fused_icnet_front,
                 icnet_front.fused_icnet_front_stem,
                 icnet_head.fused_head8_entropy_score,
-                icnet_head.fused_cff2_head8_entropy_score)
+                icnet_head.fused_cff2_head8_entropy_score,
+                icnet_head.fused_head8_predict,
+                icnet_head.fused_cff2_head8_predict)
     before = [fn.launches for fn in wrappers]
     x = torch.zeros(1, 32, 32, 3)
     for flags in ({}, dict(fuse_cff2=False), dict(fuse_stem=False)):
         tm.fused_score(x, "entropy", **flags)
-    assert [fn.launches for fn in wrappers] == before == [0, 0, 0, 0]
+        tm.fused_predict(x, **flags)
+    assert [fn.launches for fn in wrappers] == before == [0] * 6

@@ -1,9 +1,10 @@
 """The PyTorch port's serving path against the JAX package's: the
-``make_predict_fn`` hot path, the inference CLI on a JAX-written
-checkpoint (the drop-in), the checkpoint module, ``device_prefetch``,
-and that no port module imports JAX.
+``make_predict_fn`` hot path (and its ``--output-size`` route), the
+inference CLI on a JAX-written checkpoint (the drop-in), the checkpoint
+module, ``device_prefetch``, and that no port module imports JAX.
 
-Labels are compared where the JAX logits' top-2 margin exceeds 1e-4
+Labels are compared where the JAX logits' top-2 margin exceeds 1e-4, or
+with ``--output-size`` where the resized probabilities' exceeds 1e-6
 (random-init logits have near-ties that either side may break)."""
 
 import io
@@ -80,6 +81,37 @@ def test_make_predict_fn_matches_jax(jax_state, monkeypatch):
     logits = model.apply(_variables(state),
                          jnp.asarray(stack, jnp.float32) / 255.0)
     mask = decided(np.asarray(logits)[:, :h, :w])
+    assert mask.mean() > 0.99
+    np.testing.assert_array_equal(got.numpy()[mask], want[mask])
+
+
+@pytest.mark.parametrize("out_hw", [(20, 30), (90, 120)],
+                         ids=["down", "up"])
+def test_output_size_matches_jax(jax_state, monkeypatch, out_hw):
+    """--output-size: the plain forward cropped to the record, softmax, a
+    bilinear resize of the probabilities (antialiased on the way down),
+    argmax."""
+    monkeypatch.delenv("SSAL_FUSED_PREDICT", raising=False)
+    import inference as jax_inference
+    model, state = jax_state
+    h, w = 45, 60
+    lut = np.arange(256, dtype=np.uint8)
+    predict, use_fused = jax_inference.make_predict_fn(
+        model, state, jnp.asarray(lut), h, w, 3, out_hw)
+    assert not use_fused
+    stack = np.random.default_rng(2).integers(0, 256, (2, 48, 64, 3),
+                                              dtype=np.uint8)
+    want = np.asarray(predict(jnp.asarray(stack)))
+    port_net = port_model(_variables(state), C)
+    got = inference.make_predict_fn(port_net, torch.from_numpy(lut), h, w,
+                                    3, "cpu", out_hw)(torch.from_numpy(stack))
+    assert got.dtype == torch.uint8 and got.shape == (2, *out_hw)
+    with torch.no_grad():
+        logits = port_net(torch.from_numpy(stack).float() / 255.0)
+    prob = jax.nn.softmax(jnp.asarray(logits.numpy()[:, :h, :w]), axis=-1)
+    prob = np.asarray(jax.image.resize(prob, (2, *out_hw, C), "bilinear"))
+    top2 = np.sort(prob, axis=-1)[..., -2:]
+    mask = (top2[..., 1] - top2[..., 0]) > 1e-6
     assert mask.mean() > 0.99
     np.testing.assert_array_equal(got.numpy()[mask], want[mask])
 
@@ -162,7 +194,7 @@ def test_cli_on_a_jax_checkpoint(jax_state, jax_ckpt, records, tmp_path):
         np.testing.assert_array_equal(got[mask[i]], want[i][mask[i]])
 
 
-@pytest.mark.parametrize("flag", [["-s", "16", "32"],
+@pytest.mark.parametrize("flag", [["-m", "ICNet", "--modalities", "nir"],
                                   ["--modalities", "nir"], ["--view"]])
 def test_deferred_flags_name_their_roadmap_item(flag, tmp_path):
     args = inference.parse_arguments(

@@ -64,6 +64,16 @@ def test_no_jax_import(path):
     assert not bad, f"{path} imports the JAX side: {bad}"
 
 
+def test_the_scan_covers_the_rig_scripts():
+    """The port's tools/ subpackage (the rigs and their scripts) is in
+    the scan, so the rigs stand alone as the package does."""
+    tools = os.path.join(PORT, "tools")
+    scanned = {os.path.relpath(p, tools) for p in _sources()
+               if p.startswith(tools + os.sep)}
+    assert {"rigs.py", "probe_launch_overhead.py", "probe_matmul_floor.py",
+            "probe_front_packing.py"} <= scanned
+
+
 def test_the_port_has_its_own_host_modules():
     for name in ("data/proto.py", "data/tfrecord.py", "data/example.py",
                  "data/etl.py", "data/loader.py", "data/native.py",
