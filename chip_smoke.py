@@ -8,11 +8,16 @@ Phases (any failure raises, so the exit code is not 0):
   1. device: the card's name and power limit; CUDA must be present.
   2. build: nvcc compiles the kernels of
      semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a, one
-     process per source.
+     process per source; prints ptxas's registers and spills and the
+     HMMA (tensor-core) instruction count of each tail kernel's SASS.
   3. kernels: the serving kernels (front, mid, tail predict) against
      their plain PyTorch versions on the same inputs at ENet-19, batch 2,
      1024x2048, with seeded weights (glorot-uniform convs, noised BN
-     statistics); also each one's time beside its plain version's.
+     statistics); also each one's time beside its plain version's; the
+     tail's split (its stage-4 and stage-5 kernels alone, x4 against the
+     plain stage 4 and against that stage 4 with its products' operands
+     rounded one precision lower, the decoder score kernel on the same
+     stage-4 output) and its TFLOP/s of least work.
   4. serve: a seeded checkpoint saved and restored through the port's
      checkpoint module, then make_predict_fn over uint8 batches fed by
      device_prefetch. The kernels' launch counters are zeroed before this
@@ -25,7 +30,8 @@ Phases (any failure raises, so the exit code is not 0):
         plain versions on the same inputs, |score difference| <= 1e-4 per
         image, with the smoke's Final kernel (x25), the recipe's (x1) and
         a sharp one (x1000), so that both ends of the entropy are held;
-        each one's time beside its plain version's.
+        each one's time beside its plain version's; the tail's split,
+        its x4 gates and TFLOP/s as in phase 3.
      b. the pool: 6 uint8 batches through device_prefetch, /255 and
         make_score_step(model, 19, "entropy"), with the counters zeroed
         before; the scores against the plain chain's; then one batch
@@ -125,8 +131,12 @@ BATCHES, WARMUP = 10, 2  # served batches; the first WARMUP are not timed
 REPS = 5                 # timed runs per kernel and per plain version
 PROFILE_BATCHES = 5      # phase 6's profiled batches per chain
 # published H100 SXM peaks: fp32 outside the tensor cores, HBM3, dense
-# bf16 on the tensor cores
-PEAK_FLOPS, PEAK_BYTES, PEAK_BF16 = 67e12, 3.35e12, 989e12
+# TF32 and bf16 on the tensor cores
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+PEAK_TF32, PEAK_BF16 = 495e12, 989e12
+# the ENet tail's peak by its route's precision (tail.PRECISION): 3xTF32
+# takes three TF32 products per multiply-add
+TAIL_PEAK = {"3xTF32": PEAK_TF32 / 3, "TF32": PEAK_TF32}
 _PALLAS = "semanticsegmentationactivelearning_tpu/ops/pallas_kernels.py"
 _CSRC = "semanticsegmentationactivelearning_tpu_torch/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -200,6 +210,27 @@ def seeded_state_dict(model, seed: int, final_scale: float = FINAL_SCALE,
     return out
 
 
+def hmma_counts(lib_path) -> dict:
+    """The tensor-core instructions (HMMA) in each kernel's SASS of the
+    built library, by ``cuobjdump -sass``; {} where the toolkit has no
+    cuobjdump."""
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                       "cuobjdump")
+    if not os.path.exists(exe):
+        print("build: no cuobjdump in the toolkit, SASS not read")
+        return {}
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
 def cuda_ms(fn) -> float:
     """Median CUDA-event time of ``fn()`` over REPS runs after one."""
     fn()
@@ -233,11 +264,12 @@ def count_flops(fn, args) -> float:
     return float(fc.get_total_flops())
 
 
-def roofline(args, outs, flops: float) -> dict:
+def roofline(args, outs, flops: float, peak: float = PEAK_FLOPS) -> dict:
     """The least time the card could take for ``flops`` operations on
-    ``args``: the larger of the operations over the fp32 peak and of the
-    bytes (each input read once, each output in ``outs`` written once)
-    over the memory rate. A model in ``args`` counts as all of its
+    ``args``: the larger of the operations over ``peak`` (the fp32 peak
+    unless the kernel computes in another precision) and of the bytes
+    (each input read once, each output in ``outs`` written once) over
+    the memory rate. A model in ``args`` counts as all of its
     weights (1.4 MB for ENet-19, 27 MB for ICNet-19, more than any one
     kernel reads)."""
     nbytes = 0
@@ -248,7 +280,7 @@ def roofline(args, outs, flops: float) -> dict:
             nbytes += sum(p.numel() * p.element_size()
                           for p in a.parameters())
     nbytes += sum(o.numel() * o.element_size() for o in outs)
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes)
@@ -348,11 +380,98 @@ def check_kernels(model, seed: int) -> dict:
             plain_ms=cuda_ms(
                 lambda: tail.tail_predict_plain(yp, sw2p, m1p, model)),
             **roofline((yp, sw2p, m1p, model), (lk,), count_flops(
-                tail.tail_predict_plain, (yp, sw2p, m1p, model))))
+                tail.tail_predict_plain, (yp, sw2p, m1p, model)),
+                TAIL_PEAK[tail.PRECISION["predict"]]))
+        res["tail"].update(tail_split(yp, sw2p, m1p, model, res["tail"],
+                                      score=False))
     for k, r in res.items():
         print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
               f"(batch {N}, {H}x{W})")
     return res
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32's 10-bit mantissa, to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``), kept as float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even), kept as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def rounded_stage4(model, y, sw2, rnd) -> torch.Tensor:
+    """The plain stage 4 with both operands of every product (each
+    conv's and transposed conv's input and weights) rounded by ``rnd``
+    and float32 sums: what a kernel that multiplies at that precision
+    reads."""
+    from semanticsegmentationactivelearning_tpu_torch.models import blocks
+    m = copy.deepcopy(model)
+    for mod in m.modules():
+        if isinstance(mod, (blocks.Conv, blocks.ConvTranspose)):
+            mod.weight.data = rnd(mod.weight.data)
+            mod.register_forward_pre_hook(
+                lambda _, args: (rnd(args[0]),) + args[1:])
+    n, h8, w8, _ = y.shape
+    with torch.no_grad():
+        return m.forward_stage4(y, sw2.reshape(n, h8, w8 * 64))
+
+
+# x4 against the plain stage 4 with every product rounded one precision
+# below the route's (rounded_stage4): a route's error must stay under
+# this share of that one, so that a kernel computing at the lower
+# precision fails. A TF32 pass reads 6-11x less than a bf16 one
+# (tests/test_torch_tail_pack.py), 3xTF32 about 1e3x less than a TF32
+# one (PERF.md).
+X4_PRECISION_GATE = {"3xTF32": ("TF32", round_tf32, 0.1),
+                     "TF32": ("bf16", round_bf16, 0.5)}
+
+
+def tail_split(y, sw2, m1, model, r: dict, score: bool) -> dict:
+    """The tail's two kernels timed alone on the inputs of its check
+    (stage 4, then stage 5 + Final + argmax or entropy), x4 against the
+    plain stage 4 (to 1e-3 of its maximum, and to X4_PRECISION_GATE),
+    the decoder score kernel on the plain stage 4's output (stage 5 +
+    Final + entropy in one kernel of the fp32 design), and the tail's
+    achieved TFLOP/s of least work (``r``'s flops over its ms)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        decoder, tail)
+    n, h8, w8, _ = y.shape
+    precision = tail.PRECISION["score" if score else "predict"]
+    lower, rnd, share = X4_PRECISION_GATE[precision]
+    with torch.no_grad():
+        f4 = model.forward_stage4(y, sw2.reshape(n, h8, w8 * 64))
+        x4 = tail.fused_tail_stage4(y, sw2, model, score)
+        err = (x4 - f4).abs().max().item()
+        bound = 1e-3 * f4.abs().max().item()
+        if not err <= bound:
+            raise AssertionError(f"tail x4: max err {err} > {bound}")
+        err_lower = (rounded_stage4(model, y, sw2, rnd) - f4).abs().max()
+        err_lower = err_lower.item()
+        print(f"tail x4 ({precision}): max|k-p| {err:.3e}; the plain stage "
+              f"4 in {lower} {err_lower:.3e}, the gate {share:g} of it")
+        if not err <= share * err_lower:
+            raise AssertionError(f"tail x4: max err {err} is not below "
+                                 f"{share:g} of {lower}'s {err_lower}")
+        out = dict(
+            stage4_ms=cuda_ms(
+                lambda: tail.fused_tail_stage4(y, sw2, model, score)),
+            stage5_ms=cuda_ms(lambda: tail.fused_tail_decode(
+                x4, m1, model, score)),
+            decoder_ms=cuda_ms(lambda: decoder.fused_decoder_entropy_score(
+                f4, None, model, mask=m1)),
+            tflops=r["flops"] / r["ms"] / 1e9)
+    print(f"tail {'score' if score else 'predict'} split (batch {n}, "
+          f"{8 * h8}x{8 * w8}, {precision}): x4 max|k-p| {err:.3e} "
+          f"(bound {bound:.3e}); stage 4 {out['stage4_ms']:.3f} ms, stage 5 "
+          f"+ Final {out['stage5_ms']:.3f} ms, the decoder score kernel on "
+          f"the same stage-4 output {out['decoder_ms']:.3f} ms; the tail "
+          f"{r['ms']:.3f} ms = {out['tflops']:.1f} TFLOP/s of least work "
+          f"({r['flops'] / 1e9:.2f} GFLOP), bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})")
+    return out
 
 
 def plain_predict(model, lut, stack):
@@ -409,7 +528,7 @@ def serve(model_state: dict, seed: int):
         times.append((start, end))
     torch.cuda.synchronize()
     launches = [fn.launches for fn in wrappers]
-    per_batch = (1, mid.LAUNCHES_PER_CALL, 1)
+    per_batch = (1, mid.LAUNCHES_PER_CALL, tail.LAUNCHES_PER_CALL)
     print(f"serve: {len(outs)} batches, launches front/mid/tail "
           f"{launches} (expected {[p * len(outs) for p in per_batch]})")
     if len(outs) != BATCHES or launches != [p * BATCHES for p in per_batch]:
@@ -573,8 +692,13 @@ def check_score_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
+                    peak = (TAIL_PEAK[tail.PRECISION["score"]]
+                            if name == "tail_score" else PEAK_FLOPS)
                     r.update(roofline(args, (got,), count_flops(plain, args)
-                                      + softmax_flops(SN, SH, SW, CLASSES)))
+                                      + softmax_flops(SN, SH, SW, CLASSES),
+                                      peak))
+                    if name == "tail_score":
+                        r.update(tail_split(y, sw2, m1, model, r, score=True))
         del x1, m1, y, sw2, f4, pre
     for k, r in res.items():
         print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -634,7 +758,7 @@ def score_pool(seed: int):
     stacks = []
     scores, kernel_ms = timed_scores(score_step, prefetched(host, stacks))
     launches = [fn.launches for fn in wrappers]
-    per_batch = [1, mid.LAUNCHES_PER_CALL, 1, 0, 0, 0]
+    per_batch = [1, mid.LAUNCHES_PER_CALL, tail.LAUNCHES_PER_CALL, 0, 0, 0]
     print(f"score: {len(scores)} batches, launches front/mid/tail score/"
           f"tail predict/decoder/deconv {launches} (expected "
           f"{[p * POOL_BATCHES for p in per_batch]})")
@@ -1279,6 +1403,9 @@ def main(argv=None) -> int:
     print(f"build: {b.seconds:.1f} s -> {b.path.name}")
     for ln in ptxas:
         print(f"  {ln}")
+    for fn, count in hmma_counts(b.path).items():
+        if "tail" in fn:
+            print(f"  SASS: {count} HMMA instructions in {fn}")
 
     # 3. kernels against their plain versions
     state = seeded_state_dict(get_model("ENet", CLASSES), args.seed)

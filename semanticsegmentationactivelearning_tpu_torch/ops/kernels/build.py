@@ -45,9 +45,10 @@ SIGNATURES = {
     "ssal_mid_proj": ([_P, _P, _P, _I, _P], _I),
     "ssal_mid_conv": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssal_tail_pack_size": ([_I], _I),
-    "ssal_tail_predict": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_tail_partials": ([_I, _I], _I),
-    "ssal_tail_score": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_tail_stage4": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_tail_decode_predict": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_tail_decode_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_decoder_pack_size": ([_I], _I),
     "ssal_decoder_partials": ([_I, _I], _I),
     "ssal_decoder_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),

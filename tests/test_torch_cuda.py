@@ -39,11 +39,15 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 @pytest.fixture(scope="module")
 def model():
+    return _enet(C)
+
+
+def _enet(classes):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    m = ENet(C)
+    m = ENet(classes)
     rng = np.random.default_rng(0)
     sd = {}
     for k, v in m.state_dict().items():
@@ -109,14 +113,16 @@ def test_kernels_match_plain_versions(model, shape):
 
 def test_fused_predict_counts_its_launches(model):
     image = _image((2, 64, 64, 3), 2)
+    # the tail's halves' own wrappers count only their own calls
     wrappers = (front.fused_front_stage1, mid.fused_mid_stage23,
-                tail.fused_tail_predict)
+                tail.fused_tail_predict, tail.fused_tail_stage4,
+                tail.fused_tail_decode)
     before = [fn.launches for fn in wrappers]
     labels = model.fused_predict(image)
     torch.cuda.synchronize()
     after = [fn.launches for fn in wrappers]
     assert [a - b for a, b in zip(after, before)] == \
-        [1, mid.LAUNCHES_PER_CALL, 1]
+        [1, mid.LAUNCHES_PER_CALL, tail.LAUNCHES_PER_CALL, 0, 0]
     assert labels.dtype == torch.int32 and labels.is_cuda
     with torch.no_grad():
         logits = model(image)
@@ -186,6 +192,81 @@ def test_score_kernels_match_plain_versions(model, shape):
             assert torch.equal(got, run())
 
 
+# the tail kernels' tiles: 16x16 quarter-res positions (stage 4) and
+# 16x16 half-res positions (stage 5 + Final). Ragged on both axes in
+# both kernels, one tile of each, H/8 = 6 (the least height of the score
+# route) with a ragged width, and batch 3.
+TAIL_SHAPES = [(1, 200, 136, 3), (1, 8, 8, 3), (2, 48, 200, 3),
+               (3, 72, 88, 3)]
+# (classes, score): predict pads 19, 3 and 127 classes to whole n-tiles
+TAIL_CASES = [(19, False), (3, False), (127, False), (19, True), (3, True)]
+
+
+@pytest.fixture(scope="module")
+def tail_models():
+    return {}
+
+
+@pytest.mark.parametrize("classes, score", TAIL_CASES,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("shape", TAIL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tail_kernels_match_plain_versions(tail_models, classes, score,
+                                           shape):
+    """The two tail kernels against the plain tail on the plain chain's
+    activations: labels on decided pixels, scores within 1e-4 and
+    bit-equal from one run to the next."""
+    if classes not in tail_models:
+        tail_models[classes] = _enet(classes)
+    m = tail_models[classes]
+    image = _image(shape, 9)
+    n, h, w, _ = shape
+    with torch.no_grad():
+        x1, m1 = front.front_stage1_plain(image, m)
+        y, sw2 = mid.mid_stage23_plain(x1, m)
+        if score:
+            got = tail.fused_tail_entropy_score(y, sw2, m1, m)
+            want = tail.tail_score_plain(y, sw2, m1, m)
+            assert got.dtype == torch.float32 and got.shape == (n,)
+            assert (got - want).abs().max().item() <= 1e-4
+            assert torch.equal(got, tail.fused_tail_entropy_score(y, sw2, m1,
+                                                                  m))
+            return
+        labels = tail.fused_tail_predict(y, sw2, m1, m)
+        logits = m.forward_tail(y, sw2.reshape(n, h // 8, w // 8 * 64),
+                                tail.mask_to_switches(m1))
+    assert labels.dtype == torch.int8 and labels.shape == (n, h, w)
+    decided = _decided(logits)
+    # not vacuous; 0.9, since 127 classes crowd the top two logits
+    assert decided.float().mean() > 0.9
+    assert torch.equal(labels.long()[decided], logits.argmax(-1)[decided])
+
+
+@pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
+def test_tail_halves_run_at_their_routes_precision(model, score):
+    """``fused_tail_stage4`` and ``fused_tail_decode`` each launch one
+    kernel, counted once, at the precision of their route: chained, they
+    give the route wrapper's result bit for bit; x4 is within 1e-3 of
+    the plain stage 4's maximum."""
+    image = _image((2, 64, 96, 3), 10)
+    with torch.no_grad():
+        x1, m1 = front.front_stage1_plain(image, model)
+        y, sw2 = mid.mid_stage23_plain(x1, model)
+        f4 = model.forward_stage4(y, sw2.reshape(2, 8, 12 * 64))
+        before = (tail.fused_tail_stage4.launches,
+                  tail.fused_tail_decode.launches)
+        x4 = tail.fused_tail_stage4(y, sw2, model, score)
+        got = tail.fused_tail_decode(x4, m1, model, score)
+        torch.cuda.synchronize()
+        assert (tail.fused_tail_stage4.launches,
+                tail.fused_tail_decode.launches) == \
+            (before[0] + 1, before[1] + 1)
+        route = (tail.fused_tail_entropy_score if score
+                 else tail.fused_tail_predict)
+        assert torch.equal(got, route(y, sw2, m1, model))
+    assert (x4 - f4).abs().max() <= 1e-3 * f4.abs().max()
+
+
 def test_decoder_takes_switches_or_mask(model):
     image = _image((2, 16, 32, 3), 6)
     with torch.no_grad():
@@ -213,12 +294,16 @@ def test_fused_score_routes_count_their_launches(model, flags, shape,
     image = _image(shape, 7)
     wrappers = {"tail": tail.fused_tail_entropy_score,
                 "decoder": decoder.fused_decoder_entropy_score,
-                "deconv": deconv_score.fused_deconv_entropy_score}
+                "deconv": deconv_score.fused_deconv_entropy_score,
+                "tail_stage4": tail.fused_tail_stage4,
+                "tail_decode": tail.fused_tail_decode}
     before = {k: fn.launches for k, fn in wrappers.items()}
     got = model.fused_score(image, "entropy", **flags)
     torch.cuda.synchronize()
     rose = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-    assert rose == {k: int(k == route) for k in wrappers}
+    per_call = {"tail": tail.LAUNCHES_PER_CALL, "decoder": 1, "deconv": 1,
+                "tail_stage4": 0, "tail_decode": 0}
+    assert rose == {k: per_call[k] * int(k == route) for k in wrappers}
     with torch.no_grad():
         want = acquisition.mean_confidence(model(image), "entropy", C)
     assert (got - want).abs().max().item() <= 1e-4
@@ -236,7 +321,8 @@ def test_score_step_through_device_prefetch(model):
         got, want = score({"image": image}), plain({"image": image})
         assert got.is_cuda and got.shape == (2,)
         assert (got - want).abs().max().item() <= 1e-4
-    assert tail.fused_tail_entropy_score.launches == launches + 2
+    assert tail.fused_tail_entropy_score.launches == \
+        launches + 2 * tail.LAUNCHES_PER_CALL
 
 
 # -- ICNet -------------------------------------------------------------------
