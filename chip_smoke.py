@@ -9,15 +9,20 @@ Phases (any failure raises, so the exit code is not 0):
   2. build: nvcc compiles the kernels of
      semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a, one
      process per source; prints ptxas's registers and spills and the
-     HMMA (tensor-core) instruction count of each tail kernel's SASS.
+     HMMA (tensor-core) instruction count of each tail and mid kernel's
+     SASS.
   3. kernels: the serving kernels (front, mid, tail predict) against
      their plain PyTorch versions on the same inputs at ENet-19, batch 2,
      1024x2048, with seeded weights (glorot-uniform convs, noised BN
-     statistics); also each one's time beside its plain version's; the
-     tail's split (its stage-4 and stage-5 kernels alone, x4 against the
-     plain stage 4 and against that stage 4 with its products' operands
-     rounded one precision lower, the decoder score kernel on the same
-     stage-4 output) and its TFLOP/s of least work.
+     statistics); also each one's time beside its plain version's. The
+     mid's y and the tail's x4 are held to 1e-3 of the plain maximum and
+     under a share of the error of the plain version with its products'
+     operands rounded one precision below the route's (PRECISION_GATE).
+     The mid's split (B2_0, the projection launches, the fused and the
+     unfused blocks, a dilated block both ways at d = 1, 2, 4) and the
+     tail's (its stage-4 and stage-5 kernels alone, the decoder score
+     kernel on the same stage-4 output), each with its TFLOP/s of least
+     work.
   4. serve: a seeded checkpoint saved and restored through the port's
      checkpoint module, then make_predict_fn over uint8 batches fed by
      device_prefetch. The kernels' launch counters are zeroed before this
@@ -26,12 +31,14 @@ Phases (any failure raises, so the exit code is not 0):
      Then the inference CLI on four records.
   5. score, at the active-learning loop's shape (ENet-19, batch 8,
      512x1024, conf/enet_cityscapes_active_learning.json):
-     a. the three score kernels (tail, decoder, deconv) against their
-        plain versions on the same inputs, |score difference| <= 1e-4 per
-        image, with the smoke's Final kernel (x25), the recipe's (x1) and
-        a sharp one (x1000), so that both ends of the entropy are held;
-        each one's time beside its plain version's; the tail's split,
-        its x4 gates and TFLOP/s as in phase 3.
+     a. the mid on its score route (its precision, gates and split as
+        in phase 3), then the three score kernels (tail, decoder,
+        deconv) against their plain versions on the same inputs,
+        |score difference| <= 1e-4 per image, with the smoke's Final
+        kernel (x25), the recipe's (x1) and a sharp one (x1000), so that
+        both ends of the entropy are held; each one's time beside its
+        plain version's; the tail's split, its x4 gates and TFLOP/s as
+        in phase 3.
      b. the pool: 6 uint8 batches through device_prefetch, /255 and
         make_score_step(model, 19, "entropy"), with the counters zeroed
         before; the scores against the plain chain's; then one batch
@@ -134,14 +141,16 @@ PROFILE_BATCHES = 5      # phase 6's profiled batches per chain
 # TF32 and bf16 on the tensor cores
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 PEAK_TF32, PEAK_BF16 = 495e12, 989e12
-# the ENet tail's peak by its route's precision (tail.PRECISION): 3xTF32
-# takes three TF32 products per multiply-add
-TAIL_PEAK = {"3xTF32": PEAK_TF32 / 3, "TF32": PEAK_TF32}
+# the peak of a kernel on the tensor cores by its route's precision
+# (tail.PRECISION, mid.PRECISION): 3xTF32 takes three TF32 products per
+# multiply-add
+TC_PEAK = {"3xTF32": PEAK_TF32 / 3, "TF32": PEAK_TF32}
 _PALLAS = "semanticsegmentationactivelearning_tpu/ops/pallas_kernels.py"
 _CSRC = "semanticsegmentationactivelearning_tpu_torch/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "front": (f"{_CSRC}/front.cu", f"{_PALLAS}:1474"),
     "mid": (f"{_CSRC}/mid.cu", f"{_PALLAS}:2184"),
+    "mid_score": (f"{_CSRC}/mid.cu", f"{_PALLAS}:2184"),
     "tail": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2810"),
     "tail_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2720"),
     "decoder_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:687"),
@@ -342,25 +351,7 @@ def check_kernels(model, seed: int) -> dict:
             **roofline((image, model), (x1k, m1k), count_flops(
                 front.front_stage1_plain, (image, model))))
         # mid, on the plain front's output
-        yp, sw2p = mid.mid_stage23_plain(x1p, model)
-        yk, sw2k = mid.fused_mid_stage23(x1p, model)
-        err = (yk - yp).abs().max().item()
-        bound = 1e-3 * yp.abs().max().item()
-        if not err <= bound:
-            raise AssertionError(f"mid y: max err {err} > {bound}")
-        gap = window_gap(x1p)
-        bad = ((sw2k != sw2p) & (gap > 1e-4)).sum().item()
-        print(f"mid: y max|k-p| {err:.3e} (bound {bound:.3e}); {bad} "
-              f"decided sw2 values differ "
-              f"({(gap > 1e-4).float().mean().item():.5f} decided)")
-        if bad:
-            raise AssertionError("mid sw2 disagrees with the plain one")
-        res["mid"] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: mid.fused_mid_stage23(x1p, model)),
-            plain_ms=cuda_ms(lambda: mid.mid_stage23_plain(x1p, model)),
-            **roofline((x1p, model), (yk, sw2k),
-                       count_flops(mid.mid_stage23_plain, (x1p, model))))
+        yp, sw2p, res["mid"] = check_mid(model, x1p, score=False)
         # tail, on the plain mid's and front's outputs
         lk = tail.fused_tail_predict(yp, sw2p, m1p, model)
         logits = model.forward_tail(yp, sw2p.reshape(N, H // 8, W // 8 * 64),
@@ -381,13 +372,66 @@ def check_kernels(model, seed: int) -> dict:
                 lambda: tail.tail_predict_plain(yp, sw2p, m1p, model)),
             **roofline((yp, sw2p, m1p, model), (lk,), count_flops(
                 tail.tail_predict_plain, (yp, sw2p, m1p, model)),
-                TAIL_PEAK[tail.PRECISION["predict"]]))
+                TC_PEAK[tail.PRECISION["predict"]]))
         res["tail"].update(tail_split(yp, sw2p, m1p, model, res["tail"],
                                       score=False))
     for k, r in res.items():
         print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
               f"(batch {N}, {H}x{W})")
     return res
+
+
+def check_mid(model, x1, score: bool) -> tuple:
+    """The mid kernel on one route against its plain version on ``x1``:
+    y to 1e-3 of its maximum and under PRECISION_GATE, no sw2 value
+    differs where the pooled window's top-2 gap exceeds 1e-4; its time,
+    the plain version's, its bound at the route's peak, and its split
+    (tools/probe_mid.py ``mid_split``) with its TFLOP/s of least work.
+    Returns (the plain y, the plain sw2, the result)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import mid
+    from semanticsegmentationactivelearning_tpu_torch.tools.probe_mid import (
+        FUSABLE_DILATIONS, mid_split)
+    route = "score" if score else "predict"
+    precision = mid.PRECISION[route]
+    n, hq, wq, _ = x1.shape
+    with torch.no_grad():
+        yp, sw2p = mid.mid_stage23_plain(x1, model)
+        yk, sw2k = mid.fused_mid_stage23(x1, model, score=score)
+        err = (yk - yp).abs().max().item()
+        bound = 1e-3 * yp.abs().max().item()
+        if not err <= bound:
+            raise AssertionError(f"mid y ({route}): max err {err} > {bound}")
+        gap = window_gap(x1)
+        bad = ((sw2k != sw2p) & (gap > 1e-4)).sum().item()
+        print(f"mid ({route}): y max|k-p| {err:.3e} (bound {bound:.3e}); "
+              f"{bad} decided sw2 values differ "
+              f"({(gap > 1e-4).float().mean().item():.5f} decided)")
+        if bad:
+            raise AssertionError("mid sw2 disagrees with the plain one")
+        precision_gate(f"mid y, {route}", precision, err, model,
+                       lambda m: mid.mid_stage23_plain(x1, m)[0], yp)
+        r = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: mid.fused_mid_stage23(x1, model, score=score)),
+            plain_ms=cuda_ms(lambda: mid.mid_stage23_plain(x1, model)),
+            **roofline((x1, model), (yk, sw2k),
+                       count_flops(mid.mid_stage23_plain, (x1, model)),
+                       TC_PEAK[precision]))
+        del yk, sw2k
+        sp = mid_split(mid, model, x1, yp, score, REPS)
+    r["tflops"] = r["flops"] / r["ms"] / 1e9
+    print(f"mid {route} split (batch {n}, {4 * hq}x{4 * wq}, {precision}, "
+          f"{mid.LAUNCHES_PER_CALL} launches): B2_0 {sp['b20']:.3f} ms, the "
+          f"projection launches {sp['proj']:.3f}, the fused blocks "
+          f"{sp['fused']:.3f}, the unfused blocks {sp['unfused']:.3f} (sum "
+          f"{sp['total']:.3f}); a dilated block fused/unfused at d = 1, 2, "
+          f"4: " + ", ".join(f"{sp[f'd{d}_fused']:.3f}/"
+                             f"{sp[f'd{d}_unfused']:.3f}"
+                             for d in FUSABLE_DILATIONS)
+          + f"; the mid {r['ms']:.3f} ms = {r['tflops']:.1f} TFLOP/s of "
+          f"least work ({r['flops'] / 1e9:.2f} GFLOP), bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return yp, sw2p, r
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -402,11 +446,11 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def rounded_stage4(model, y, sw2, rnd) -> torch.Tensor:
-    """The plain stage 4 with both operands of every product (each
-    conv's and transposed conv's input and weights) rounded by ``rnd``
-    and float32 sums: what a kernel that multiplies at that precision
-    reads."""
+def rounded(model, rnd, fn):
+    """``fn(m)`` (a plain function of the model) on a copy ``m`` of
+    ``model`` with both operands of every product (each conv's and
+    transposed conv's input and weights) rounded by ``rnd`` and float32
+    sums: what a kernel that multiplies at that precision computes."""
     from semanticsegmentationactivelearning_tpu_torch.models import blocks
     m = copy.deepcopy(model)
     for mod in m.modules():
@@ -414,25 +458,39 @@ def rounded_stage4(model, y, sw2, rnd) -> torch.Tensor:
             mod.weight.data = rnd(mod.weight.data)
             mod.register_forward_pre_hook(
                 lambda _, args: (rnd(args[0]),) + args[1:])
-    n, h8, w8, _ = y.shape
     with torch.no_grad():
-        return m.forward_stage4(y, sw2.reshape(n, h8, w8 * 64))
+        return fn(m)
 
 
-# x4 against the plain stage 4 with every product rounded one precision
-# below the route's (rounded_stage4): a route's error must stay under
-# this share of that one, so that a kernel computing at the lower
-# precision fails. A TF32 pass reads 6-11x less than a bf16 one
-# (tests/test_torch_tail_pack.py), 3xTF32 about 1e3x less than a TF32
-# one (PERF.md).
-X4_PRECISION_GATE = {"3xTF32": ("TF32", round_tf32, 0.1),
-                     "TF32": ("bf16", round_bf16, 0.5)}
+# A kernel's output (the tail's x4, the mid's y) against its plain
+# version with every product rounded one precision below the route's
+# (rounded): a route's error must stay under this share of that one, so
+# that a kernel computing at the lower precision fails. A TF32 pass
+# reads 6-11x less than a bf16 one at x4 and 5-12x less at y, 3xTF32
+# about 1e3x less than a TF32 one (tests/test_torch_tail_pack.py,
+# tests/test_torch_mid_pack.py, PERF.md).
+PRECISION_GATE = {"3xTF32": ("TF32", round_tf32, 0.1),
+                  "TF32": ("bf16", round_bf16, 0.5)}
+
+
+def precision_gate(what: str, precision: str, err: float, model, fn,
+                   want) -> None:
+    """Raise unless ``err`` (a kernel's max |error| against ``want``,
+    ``fn(model)``) is under PRECISION_GATE's share of the error of
+    ``fn`` with every product rounded one precision below."""
+    lower, rnd, share = PRECISION_GATE[precision]
+    err_lower = (rounded(model, rnd, fn) - want).abs().max().item()
+    print(f"{what} ({precision}): max|k-p| {err:.3e}; the plain version "
+          f"in {lower} {err_lower:.3e}, the gate {share:g} of it")
+    if not err <= share * err_lower:
+        raise AssertionError(f"{what}: max err {err} is not below "
+                             f"{share:g} of {lower}'s {err_lower}")
 
 
 def tail_split(y, sw2, m1, model, r: dict, score: bool) -> dict:
     """The tail's two kernels timed alone on the inputs of its check
     (stage 4, then stage 5 + Final + argmax or entropy), x4 against the
-    plain stage 4 (to 1e-3 of its maximum, and to X4_PRECISION_GATE),
+    plain stage 4 (to 1e-3 of its maximum, and to PRECISION_GATE),
     the decoder score kernel on the plain stage 4's output (stage 5 +
     Final + entropy in one kernel of the fp32 design), and the tail's
     achieved TFLOP/s of least work (``r``'s flops over its ms)."""
@@ -440,7 +498,6 @@ def tail_split(y, sw2, m1, model, r: dict, score: bool) -> dict:
         decoder, tail)
     n, h8, w8, _ = y.shape
     precision = tail.PRECISION["score" if score else "predict"]
-    lower, rnd, share = X4_PRECISION_GATE[precision]
     with torch.no_grad():
         f4 = model.forward_stage4(y, sw2.reshape(n, h8, w8 * 64))
         x4 = tail.fused_tail_stage4(y, sw2, model, score)
@@ -448,13 +505,9 @@ def tail_split(y, sw2, m1, model, r: dict, score: bool) -> dict:
         bound = 1e-3 * f4.abs().max().item()
         if not err <= bound:
             raise AssertionError(f"tail x4: max err {err} > {bound}")
-        err_lower = (rounded_stage4(model, y, sw2, rnd) - f4).abs().max()
-        err_lower = err_lower.item()
-        print(f"tail x4 ({precision}): max|k-p| {err:.3e}; the plain stage "
-              f"4 in {lower} {err_lower:.3e}, the gate {share:g} of it")
-        if not err <= share * err_lower:
-            raise AssertionError(f"tail x4: max err {err} is not below "
-                                 f"{share:g} of {lower}'s {err_lower}")
+        precision_gate("tail x4", precision, err, model,
+                       lambda m: m.forward_stage4(
+                           y, sw2.reshape(n, h8, w8 * 64)), f4)
         out = dict(
             stage4_ms=cuda_ms(
                 lambda: tail.fused_tail_stage4(y, sw2, model, score)),
@@ -654,7 +707,11 @@ def check_score_kernels(seed: int) -> dict:
     image = torch.from_numpy(rng.integers(0, 256, (SN, SH, SW, 3),
                                           dtype=np.uint8)).cuda()
     image = image.float() / 255.0
-    res = {}
+    model = score_model(seed, FINAL_SCALE)
+    with torch.no_grad():
+        x1, _ = front.front_stage1_plain(image, model)
+    res = {"mid_score": check_mid(model, x1, score=True)[2]}
+    del x1
     for scale in SCORE_SCALES:
         model = score_model(seed, scale)
         with torch.no_grad():
@@ -692,7 +749,7 @@ def check_score_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
-                    peak = (TAIL_PEAK[tail.PRECISION["score"]]
+                    peak = (TC_PEAK[tail.PRECISION["score"]]
                             if name == "tail_score" else PEAK_FLOPS)
                     r.update(roofline(args, (got,), count_flops(plain, args)
                                       + softmax_flops(SN, SH, SW, CLASSES),
@@ -795,7 +852,8 @@ def score_pool(seed: int):
               f"time(s); max |k-p| {err:.3e}")
         if fn.launches != 1 or not err <= SCORE_TOL:
             raise AssertionError(f"the {name} route failed")
-    launches = dict(tail_score=launches[2], **route_launches)
+    launches = dict(mid_score=launches[1], tail_score=launches[2],
+                    **route_launches)
     return launches, kernel_ms, plain_ms
 
 
@@ -1404,7 +1462,8 @@ def main(argv=None) -> int:
     for ln in ptxas:
         print(f"  {ln}")
     for fn, count in hmma_counts(b.path).items():
-        if "tail" in fn:
+        if any(k in fn for k in ("tail", "b20_kernel", "proj_kernel",
+                                 "block_kernel")):
             print(f"  SASS: {count} HMMA instructions in {fn}")
 
     # 3. kernels against their plain versions

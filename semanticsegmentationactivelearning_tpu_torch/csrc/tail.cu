@@ -57,17 +57,10 @@ namespace ssal {
 namespace {
 
 // -- the pack ------------------------------------------------------------
-// One record per GEMM layer, in this order (ops/kernels/tail.py
-// pack_tail builds the same): the weight [taps][k][s] (k rows padded
-// with zeros, columns padded to n, then to the stride s), then nv
-// vectors of n floats (bias and PReLU alpha, or bias and the residual
-// PReLU alpha of an expand; none for a residual conv and the Final).
-struct Layer {
-  int off, taps, k, n, s, nv;
-  __host__ __device__ int wsize() const { return taps * k * s; }
-  __host__ __device__ int size() const { return wsize() + nv * n; }
-};
-
+// One GEMM record per layer (tc.cuh Layer), in this order (ops/kernels/
+// tail.py pack_tail builds the same): vectors bias and PReLU alpha, or
+// bias and the residual PReLU alpha of an expand; none for a residual
+// conv and the Final.
 enum {
   P40, R40, D40, E40,  // Bottleneck4_0: proj, residual, deconv, expand
   P41, C41, E41, P42, C42, E42,
@@ -77,14 +70,6 @@ enum {
   NLAYERS
 };
 constexpr int T5_FIRST = P50;
-
-// The smallest s >= n (n % 8 == 0) with s % 32 in {8, 24}: the B
-// fragment's reads (k row q, column g) then hit 32 different banks.
-int bstride(int n) {
-  int s = n;
-  while (s % 32 != 8 && s % 32 != 24) s += 8;
-  return s;
-}
 
 // n-tiles of the Final per chunk of classes, and its padded class count
 int final_ntf(int c) { return c <= 8 ? 1 : c <= 16 ? 2 : c <= 24 ? 3 : 4; }
@@ -122,61 +107,6 @@ Layout tail_layout(int c) {
 // (tr, tc); tap (tr, tc) reads the coarse position (i - tr, j - tc)
 __device__ __constant__ int kPhaseTap[4] = {0, 4, 6, 8};
 
-// -- the warp GEMM ---------------------------------------------------------
-
-// For the items first, first+1, ... of a layer (each 16 rows of its M
-// positions x 8NT of its N columns) that fall to this warp when items
-// are dealt round-robin to the block's warps, continuing from `first`:
-// acc = sum over taps t and k of A[p][t][k] * w[t][k][n], where
-// src(p, t) points at row p's K values for tap t (p >= M: a zero row),
-// then out(p, n, acc[p][n], acc[p][n+1]) for p < M, n even. Returns
-// the number of items.
-template <int NT, int PASSES, int K, class Src, class Out>
-__device__ __forceinline__ int gemm(int first, int M, int N, int taps,
-                                    const float* w, int ws, Src src,
-                                    Out out) {
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int ng = N / (8 * NT);
-  const int items = (M + 15) / 16 * ng;
-  int it = warp - first % nw;
-  if (it < 0) it += nw;
-  for (; it < items; it += nw) {
-    const int p0 = it / ng * 16, n0 = it % ng * 8 * NT;
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int t = 0; t < taps; ++t) {
-      const float* r0 = src(p0 + g, t);
-      const float* r1 = src(p0 + g + 8, t);
-      const float* wt = w + t * K * ws;
-#pragma unroll
-      for (int k = 0; k < K; k += 8)
-        mma_kstep<NT, PASSES>(acc, r0[k + q], r1[k + q], r0[k + q + 4],
-                              r1[k + q + 4], wt + k * ws, ws, n0);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = p0 + g + 8 * h;
-        if (p < M)
-          out(p, n0 + 8 * j + 2 * q, acc[j][2 * h], acc[j][2 * h + 1]);
-      }
-  }
-  return items;
-}
-
-// A layer's weight, bias and second vector in shared memory at W.
-struct Smem {
-  const float *w, *b, *v;
-  int ws;
-};
-__device__ __forceinline__ Smem smem_layer(const float* W, const Layer& L) {
-  return {W, W + L.wsize(), W + L.wsize() + L.n, L.s};
-}
-
 // -- stage 4 -------------------------------------------------------------
 
 constexpr int T4 = 16;             // quarter-res output tile side
@@ -197,15 +127,6 @@ struct Tail4Params {
   const float* pack;
   Layer l[T5_FIRST];
 };
-
-// Stage `L` of the pack into W (after every thread is done with W).
-__device__ __forceinline__ Smem stage_layer(float* W, const float* pack,
-                                            const Layer& L) {
-  __syncthreads();
-  cp_async_floats(W, pack + L.off, L.size());
-  cp_async_wait_sync();
-  return smem_layer(W, L);
-}
 
 // One block per (image, 16x16 tile of quarter-res positions at
 // (qr0, qc0)). Rectangles (global coordinates): E, eighth res, rows

@@ -1,7 +1,8 @@
-// Tensor-core pieces of the ENet tail kernels (tail.cu): the warp-level
-// TF32 product mma.sync.m16n8k8 with fp32 accumulation, taken once
-// (TF32) or three times over the hi/lo split of both operands (3xTF32,
-// about fp32's accuracy), and cp.async copies into shared memory.
+// Tensor-core pieces of the ENet tail and mid kernels (tail.cu, mid.cu):
+// the warp-level TF32 product mma.sync.m16n8k8 with fp32 accumulation,
+// taken once (TF32) or three times over the hi/lo split of both operands
+// (3xTF32, about fp32's accuracy), cp.async copies into shared memory,
+// the GEMM record of a layer's weights and the warp GEMM over records.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4,
 // q = lane % 4: A reg 0/1/2/3 = (row g, col q), (g+8, q), (g, q+4),
@@ -92,6 +93,116 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_wait_sync() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
+}
+
+// Close this thread's group of the copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's groups are pending, then for
+// every thread.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group_sync() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  __syncthreads();
+}
+
+// A layer's GEMM record in a pack (the packers in ops/kernels build the
+// same): the weight [taps][k][s] (k rows padded with zeros, columns
+// padded to n, then to the stride s), then nv vectors of n floats.
+struct Layer {
+  int off, taps, k, n, s, nv;
+  __host__ __device__ int wsize() const { return taps * k * s; }
+  __host__ __device__ int size() const { return wsize() + nv * n; }
+};
+
+// The smallest s >= n (n % 8 == 0) with s % 32 in {8, 24}: the B
+// fragment's reads (k row q, column g) then hit 32 different banks.
+inline int bstride(int n) {
+  int s = n;
+  while (s % 32 != 8 && s % 32 != 24) s += 8;
+  return s;
+}
+
+// -- the warp GEMM ---------------------------------------------------------
+
+// For the items first, first+1, ... of a layer (each 16 rows of its M
+// positions x 8NT of its N columns) that fall to this warp when items
+// are dealt round-robin to the block's warps, continuing from `first`:
+// acc = sum over taps t and k of A[p][t][k] * w[t][k][n], where
+// src(p, t) points at row p's K values for tap t (p >= M: a zero row),
+// then out(p, n, acc[p][n], acc[p][n+1]) for p < M, n even. Returns
+// the number of items. VEC4 (K % 16 == 0, rows 16-byte aligned): a lane
+// reads 4 consecutive values of a row at once, A[k + 4q .. k + 4q + 3]
+// of each 16 (for rows in device memory); the first two feed k-step
+// k/8's columns q and q+4, the last two k-step k/8 + 1's, so the record
+// holds its rows in that order (ops/kernels/packing.py vec4_order).
+template <int NT, int PASSES, int K, bool VEC4 = false, class Src,
+          class Out>
+__device__ __forceinline__ int gemm(int first, int M, int N, int taps,
+                                    const float* w, int ws, Src src,
+                                    Out out) {
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int ng = N / (8 * NT);
+  const int items = (M + 15) / 16 * ng;
+  int it = warp - first % nw;
+  if (it < 0) it += nw;
+  for (; it < items; it += nw) {
+    const int p0 = it / ng * 16, n0 = it % ng * 8 * NT;
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int t = 0; t < taps; ++t) {
+      const float* r0 = src(p0 + g, t);
+      const float* r1 = src(p0 + g + 8, t);
+      const float* wt = w + t * K * ws;
+      if (VEC4) {
+#pragma unroll
+        for (int k = 0; k < K; k += 16) {
+          const float4 u = *reinterpret_cast<const float4*>(r0 + k + 4 * q);
+          const float4 v = *reinterpret_cast<const float4*>(r1 + k + 4 * q);
+          mma_kstep<NT, PASSES>(acc, u.x, v.x, u.y, v.y, wt + k * ws, ws, n0);
+          mma_kstep<NT, PASSES>(acc, u.z, v.z, u.w, v.w, wt + (k + 8) * ws,
+                                ws, n0);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; k += 8)
+          mma_kstep<NT, PASSES>(acc, r0[k + q], r1[k + q], r0[k + q + 4],
+                                r1[k + q + 4], wt + k * ws, ws, n0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + g + 8 * h;
+        if (p < M)
+          out(p, n0 + 8 * j + 2 * q, acc[j][2 * h], acc[j][2 * h + 1]);
+      }
+  }
+  return items;
+}
+
+// A layer's weight, bias and second vector in shared memory at W.
+struct Smem {
+  const float *w, *b, *v;
+  int ws;
+};
+__device__ __forceinline__ Smem smem_layer(const float* W, const Layer& L) {
+  return {W, W + L.wsize(), W + L.wsize() + L.n, L.s};
+}
+
+// Stage `L` of the pack into W (after every thread is done with W).
+__device__ __forceinline__ Smem stage_layer(float* W, const float* pack,
+                                            const Layer& L) {
+  __syncthreads();
+  cp_async_floats(W, pack + L.off, L.size());
+  cp_async_wait_sync();
+  return smem_layer(W, L);
 }
 
 }  // namespace ssal

@@ -192,7 +192,7 @@ class ENet(PackedModel):
                                                            self)
             x1, mask1 = front.fused_front_stage1(image, self)
             if fuse_mid:
-                y, sw2 = mid.fused_mid_stage23(x1, self)
+                y, sw2 = mid.fused_mid_stage23(x1, self, score=True)
             else:
                 y, sw2 = mid.mid_stage23_plain(x1, self)
             if fuse_tail:

@@ -38,12 +38,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "ssal_front_pack_size": ([], _I),
     "ssal_front": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "ssal_mid_b20_pack_size": ([], _I),
-    "ssal_mid_proj_pack_size": ([], _I),
-    "ssal_mid_conv_pack_size": ([_I], _I),
-    "ssal_mid_b20": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "ssal_mid_proj": ([_P, _P, _P, _I, _P], _I),
-    "ssal_mid_conv": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "ssal_mid_pack_size": ([_I], _I),
+    "ssal_mid_b20": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_mid_proj": ([_P, _P, _P, _I, _I, _P], _I),
+    "ssal_mid_block": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "ssal_tail_pack_size": ([_I], _I),
     "ssal_tail_partials": ([_I, _I], _I),
     "ssal_tail_stage4": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),

@@ -24,6 +24,7 @@ import torch
 
 from .. import acquisition
 from . import build, packing
+from .packing import bstride, conv_taps, gemm_record
 
 MAX_CLASSES = 127  # labels are int8
 LAUNCHES_PER_CALL = 2
@@ -53,15 +54,6 @@ _RECORDS = ((1, 128, 32, 2), (1, 128, 64, 0), (9, 32, 16, 2),
             (1, 16, 8, 2), (1, 40, 8, 2), (1, 8, 16, 2))     # B5_1
 
 
-def bstride(n: int) -> int:
-    """The weights' row stride in shared memory: the smallest s >= n
-    with s % 32 in (8, 24), so that a B fragment's reads hit 32 banks."""
-    s = n
-    while s % 32 not in (8, 24):
-        s += 8
-    return s
-
-
 def final_cp(c: int) -> int:
     """The Final's class count padded to whole chunks of n-tiles (1-4
     tiles of 8 classes a chunk)."""
@@ -88,54 +80,33 @@ def phase_taps(k: torch.Tensor) -> torch.Tensor:
                         for kh, kw in taps])
 
 
-def _record(w: torch.Tensor, k: int, n: int, vecs=()) -> List[torch.Tensor]:
-    """``w [taps, k0, n0]`` zero-padded to ``[taps, k, bstride(n)]``, then
-    each vector zero-padded to ``n``."""
-    t, k0, n0 = w.shape
-    out = torch.zeros(t, k, bstride(n))
-    out[:, :k0, :n0] = w
-    parts = [out]
-    for v in vecs:
-        pv = torch.zeros(n)
-        pv[:v.numel()] = v.detach().reshape(-1)
-        parts.append(pv)
-    return parts
-
-
-def _conv(blk_conv, bn, prelu=None):
-    """(w * s [kh*kw, in, out], [t, alpha]) of a conv + BN (+ PReLU)."""
-    w, *vecs = packing.affine(packing.hwio(blk_conv), bn, prelu)
-    kh, kw, i, o = w.shape
-    return w.reshape(kh * kw, i, o), vecs
-
-
 def _upsample(blk, fo: int) -> List[torch.Tensor]:
     """A ``BottleneckUpsample``'s four records: projection, residual 1x1
     conv, transposed conv by phase, expand (+ the residual PReLU)."""
-    w, v = _conv(blk.proj_conv, blk.proj_bn, blk.proj_prelu)
-    parts = _record(w, w.shape[1], w.shape[2], v)
+    w, v = conv_taps(blk.proj_conv, blk.proj_bn, blk.proj_prelu)
+    parts = gemm_record(w, w.shape[1], w.shape[2], v)
     res = packing.hwio(blk.res_conv)
-    parts += _record(res.reshape(1, *res.shape[2:]), res.shape[2],
+    parts += gemm_record(res.reshape(1, *res.shape[2:]), res.shape[2],
                      res.shape[3])
     d, *v = packing.affine(packing.deconv_hwio(blk.deconv), blk.conv_bn,
                            blk.conv_prelu)
-    parts += _record(phase_taps(d), d.shape[2], fo, v)
-    w, (t,) = _conv(blk.exp_conv, blk.exp_bn)
-    return parts + _record(w, 8 * -(-w.shape[1] // 8), w.shape[2],
+    parts += gemm_record(phase_taps(d), d.shape[2], fo, v)
+    w, (t,) = conv_taps(blk.exp_conv, blk.exp_bn)
+    return parts + gemm_record(w, 8 * -(-w.shape[1] // 8), w.shape[2],
                            (t, blk.res_prelu.alpha))
 
 
 def _bottleneck(blk, k_conv: int, n_small: int) -> List[torch.Tensor]:
     """A plain ``Bottleneck``'s three records; its 3x3 conv is nine taps
     (64-channel blocks) or one K = 9 x 4 record (B5_1, ``k_conv`` 40)."""
-    w, v = _conv(blk.proj_conv, blk.proj_bn, blk.proj_prelu)
-    parts = _record(w, w.shape[1], n_small, v)
-    w, v = _conv(blk.conv, blk.conv_bn, blk.conv_prelu)
+    w, v = conv_taps(blk.proj_conv, blk.proj_bn, blk.proj_prelu)
+    parts = gemm_record(w, w.shape[1], n_small, v)
+    w, v = conv_taps(blk.conv, blk.conv_bn, blk.conv_prelu)
     if k_conv != w.shape[1]:
         w = w.reshape(1, -1, w.shape[2])
-    parts += _record(w, k_conv, n_small, v)
-    w, (t,) = _conv(blk.exp_conv, blk.exp_bn)
-    return parts + _record(w, 8 * -(-w.shape[1] // 8), w.shape[2],
+    parts += gemm_record(w, k_conv, n_small, v)
+    w, (t,) = conv_taps(blk.exp_conv, blk.exp_bn)
+    return parts + gemm_record(w, 8 * -(-w.shape[1] // 8), w.shape[2],
                            (t, blk.res_prelu.alpha))
 
 
@@ -148,7 +119,7 @@ def pack_tail(model) -> torch.Tensor:
     parts += _upsample(model.Bottleneck5_0, 8)
     parts += _bottleneck(model.Bottleneck5_1, 40, 8)
     fin = phase_taps(packing.deconv_hwio(model.Final.deconv))
-    parts += _record(fin, 16, final_cp(model.num_classes))
+    parts += gemm_record(fin, 16, final_cp(model.num_classes))
     return packing.flat(parts)
 
 

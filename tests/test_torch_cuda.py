@@ -267,6 +267,39 @@ def test_tail_halves_run_at_their_routes_precision(model, score):
     assert (x4 - f4).abs().max() <= 1e-3 * f4.abs().max()
 
 
+# ragged tiles, one tile, a grid narrower than dilation 16, batch 3
+MID_SHAPES = [(2, 72, 280, 3), (1, 128, 128, 3), (1, 136, 40, 3),
+              (3, 64, 96, 3)]
+
+
+@pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
+@pytest.mark.parametrize("shape", MID_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mid_kernels_match_plain_version_per_route(model, shape, score):
+    """The mid's kernels on each route against the plain mid on the
+    plain front's output: y within 1e-3 of the plain maximum and under
+    chip_smoke's precision gate (a share of the error of the plain mid
+    with every product rounded one precision below the route's), sw2
+    exact where the pooled window is decided; LAUNCHES_PER_CALL
+    launches a call."""
+    from chip_smoke import precision_gate  # the repo root, on sys.path
+    image = _image(shape, 11)
+    with torch.no_grad():
+        x1, _ = front.front_stage1_plain(image, model)
+        yp, sw2p = mid.mid_stage23_plain(x1, model)
+        before = mid.fused_mid_stage23.launches
+        y, sw2 = mid.fused_mid_stage23(x1, model, score=score)
+        torch.cuda.synchronize()
+    assert mid.fused_mid_stage23.launches - before == mid.LAUNCHES_PER_CALL
+    assert y.shape == yp.shape and sw2.dtype == torch.int8
+    err = (y - yp).abs().max().item()
+    assert err <= 1e-3 * yp.abs().max().item()
+    precision_gate("mid y", mid.PRECISION["score" if score else "predict"],
+                   err, model, lambda m: mid.mid_stage23_plain(x1, m)[0], yp)
+    gap = _gap(x1)
+    assert torch.equal(sw2[gap > 1e-4], sw2p[gap > 1e-4])
+
+
 def test_decoder_takes_switches_or_mask(model):
     image = _image((2, 16, 32, 3), 6)
     with torch.no_grad():

@@ -317,7 +317,7 @@ def test_round_tf32_to_nearest_ties_away():
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_x4_precision_gate_separates_tf32_from_bf16(seed):
-    """The premise of chip_smoke's X4_PRECISION_GATE for the score route:
+    """The premise of chip_smoke's PRECISION_GATE for the score route:
     on the smoke's seeded ENet-19 (at 128x256), the plain stage 4 with
     every product in TF32 reads under half the error of the same in
     bf16, so a kernel computing in bf16 fails the gate that one TF32
@@ -334,9 +334,12 @@ def test_x4_precision_gate_separates_tf32_from_bf16(seed):
         x1, _ = front.front_stage1_plain(image, m)
         y, sw2 = mid.mid_stage23_plain(x1, m)
         f4 = m.forward_stage4(y, sw2.reshape(2, 16, 32 * 64))
-    lower, rnd, share = chip_smoke.X4_PRECISION_GATE["TF32"]
+    lower, rnd, share = chip_smoke.PRECISION_GATE["TF32"]
     assert lower == "bf16" and share == 0.5
-    err = {name: (chip_smoke.rounded_stage4(m, y, sw2, r) - f4).abs().max()
+    def stage4(mm):
+        return mm.forward_stage4(y, sw2.reshape(2, 16, 32 * 64))
+
+    err = {name: (chip_smoke.rounded(m, r, stage4) - f4).abs().max()
            for name, r in (("TF32", chip_smoke.round_tf32),
                            ("bf16", rnd))}
     assert 0 < err["TF32"] < share * err["bf16"]
