@@ -9,20 +9,22 @@ Phases (any failure raises, so the exit code is not 0):
   2. build: nvcc compiles the kernels of
      semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a, one
      process per source; prints ptxas's registers and spills and the
-     HMMA (tensor-core) instruction count of each tail and mid kernel's
-     SASS.
+     HMMA (tensor-core) instruction count of each front, mid and tail
+     kernel's SASS.
   3. kernels: the serving kernels (front, mid, tail predict) against
      their plain PyTorch versions on the same inputs at ENet-19, batch 2,
      1024x2048, with seeded weights (glorot-uniform convs, noised BN
      statistics); also each one's time beside its plain version's. The
-     mid's y and the tail's x4 are held to 1e-3 of the plain maximum and
-     under a share of the error of the plain version with its products'
-     operands rounded one precision below the route's (PRECISION_GATE).
-     The mid's split (B2_0, the projection launches, the fused and the
-     unfused blocks, a dilated block both ways at d = 1, 2, 4) and the
-     tail's (its stage-4 and stage-5 kernels alone, the decoder score
-     kernel on the same stage-4 output), each with its TFLOP/s of least
-     work.
+     front's x1, the mid's y and the tail's x4 are held to 1e-3 of the
+     plain maximum and under a share of the error of the plain version
+     with its products' operands rounded one precision below the route's
+     (PRECISION_GATE); the front's mask1 must be one-hot with no switch
+     differing where the window is decided. The front's split (Initial +
+     B1_0, each stage-1 bottleneck), the mid's (B2_0, the projection
+     launches, the fused and the unfused blocks, a dilated block both
+     ways at d = 1, 2, 4) and the tail's (its stage-4
+     and stage-5 kernels alone, the decoder score kernel on the same
+     stage-4 output), each with its TFLOP/s of least work.
   4. serve: a seeded checkpoint saved and restored through the port's
      checkpoint module, then make_predict_fn over uint8 batches fed by
      device_prefetch. The kernels' launch counters are zeroed before this
@@ -31,9 +33,10 @@ Phases (any failure raises, so the exit code is not 0):
      Then the inference CLI on four records.
   5. score, at the active-learning loop's shape (ENet-19, batch 8,
      512x1024, conf/enet_cityscapes_active_learning.json):
-     a. the mid on its score route (its precision, gates and split as
-        in phase 3), then the three score kernels (tail, decoder,
-        deconv) against their plain versions on the same inputs,
+     a. the front and the mid on their score route (their precision,
+        gates and split as in phase 3), then the three score kernels
+        (tail, decoder, deconv) against their plain versions on the
+        same inputs,
         |score difference| <= 1e-4 per image, with the smoke's Final
         kernel (x25), the recipe's (x1) and a sharp one (x1000), so that
         both ends of the entropy are held; each one's time beside its
@@ -142,13 +145,14 @@ PROFILE_BATCHES = 5      # phase 6's profiled batches per chain
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 PEAK_TF32, PEAK_BF16 = 495e12, 989e12
 # the peak of a kernel on the tensor cores by its route's precision
-# (tail.PRECISION, mid.PRECISION): 3xTF32 takes three TF32 products per
-# multiply-add
+# (front.PRECISION, mid.PRECISION, tail.PRECISION): 3xTF32 takes three
+# TF32 products per multiply-add
 TC_PEAK = {"3xTF32": PEAK_TF32 / 3, "TF32": PEAK_TF32}
 _PALLAS = "semanticsegmentationactivelearning_tpu/ops/pallas_kernels.py"
 _CSRC = "semanticsegmentationactivelearning_tpu_torch/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "front": (f"{_CSRC}/front.cu", f"{_PALLAS}:1474"),
+    "front_score": (f"{_CSRC}/front.cu", f"{_PALLAS}:1474"),
     "mid": (f"{_CSRC}/mid.cu", f"{_PALLAS}:2184"),
     "mid_score": (f"{_CSRC}/mid.cu", f"{_PALLAS}:2184"),
     "tail": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2810"),
@@ -318,38 +322,15 @@ def decided_labels(logits: torch.Tensor, margin: float):
 def check_kernels(model, seed: int) -> dict:
     """Each kernel against its plain version on the same inputs."""
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
-        front, mid, tail)
+        tail)
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 1)
     stack = torch.from_numpy(
         rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(dev)
     image = stack.float() / 255.0
     res = {}
+    x1p, m1p, res["front"] = check_front(model, image, score=False)
     with torch.no_grad():
-        # front
-        x1p, m1p = front.front_stage1_plain(image, model)
-        x1k, m1k = front.fused_front_stage1(image, model)
-        err = (x1k - x1p).abs().max().item()
-        bound = 1e-3 * x1p.abs().max().item()
-        if not err <= bound:
-            raise AssertionError(f"front x1: max err {err} > {bound}")
-        gap = window_gap(model.Initial(image))
-        swk = m1k.reshape(N, H // 4, W // 4, 4, 16).argmax(dim=3)
-        swp = m1p.reshape(N, H // 4, W // 4, 4, 16).argmax(dim=3)
-        onehot = bool((m1k.reshape(N, H // 4, W // 4, 4, 16).sum(3) == 1)
-                      .all() and ((m1k == 0) | (m1k == 1)).all())
-        bad = ((swk != swp) & (gap > 1e-4)).sum().item()
-        print(f"front: x1 max|k-p| {err:.3e} (bound {bound:.3e}); mask1 "
-              f"one-hot {onehot}, {bad} decided switches differ "
-              f"({(gap > 1e-4).float().mean().item():.5f} decided)")
-        if bad or not onehot:
-            raise AssertionError("front mask1 disagrees with the plain one")
-        res["front"] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: front.fused_front_stage1(image, model)),
-            plain_ms=cuda_ms(lambda: front.front_stage1_plain(image, model)),
-            **roofline((image, model), (x1k, m1k), count_flops(
-                front.front_stage1_plain, (image, model))))
         # mid, on the plain front's output
         yp, sw2p, res["mid"] = check_mid(model, x1p, score=False)
         # tail, on the plain mid's and front's outputs
@@ -379,6 +360,70 @@ def check_kernels(model, seed: int) -> dict:
         print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
               f"(batch {N}, {H}x{W})")
     return res
+
+
+def check_front(model, image, score: bool) -> tuple:
+    """The front on one route against its plain version on ``image``: x1
+    to 1e-3 of its maximum and under PRECISION_GATE, mask1 one-hot with
+    no switch differing where Initial's pooled window has a top-2 gap
+    above 1e-4; its time, the plain version's, its bound at the route's
+    peak, and its split (tools/probe_front.py ``front_split``) with its
+    TFLOP/s of least work. Returns (the plain x1, the plain mask1, the
+    result)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        front)
+    from semanticsegmentationactivelearning_tpu_torch.tools.probe_front \
+        import front_split
+    route = "score" if score else "predict"
+    precision = front.PRECISION[route]
+    n, h, w, _ = image.shape
+    with torch.no_grad():
+        x1p, m1p = front.front_stage1_plain(image, model)
+        x1k, m1k = front.fused_front_stage1(image, model, score=score)
+        err = (x1k - x1p).abs().max().item()
+        bound = 1e-3 * x1p.abs().max().item()
+        if not err <= bound:
+            raise AssertionError(f"front x1 ({route}): max err {err} > "
+                                 f"{bound}")
+        gap = window_gap(model.Initial(image))
+        win = (n, h // 4, w // 4, 4, 16)
+        swk = m1k.reshape(win).argmax(dim=3)
+        swp = m1p.reshape(win).argmax(dim=3)
+        onehot = bool((m1k.reshape(win).sum(3) == 1).all()
+                      and ((m1k == 0) | (m1k == 1)).all())
+        bad = ((swk != swp) & (gap > 1e-4)).sum().item()
+        print(f"front ({route}): x1 max|k-p| {err:.3e} (bound {bound:.3e}); "
+              f"mask1 one-hot {onehot}, {bad} decided switches differ "
+              f"({(gap > 1e-4).float().mean().item():.5f} decided)")
+        if bad or not onehot:
+            raise AssertionError("front mask1 disagrees with the plain one")
+        del gap, swk, swp
+        # Initial's products stay fp32 on both routes: only B1_0..B1_4's
+        # are rounded for the gate
+        precision_gate(f"front x1, {route}", precision, err, model,
+                       lambda m: front.front_stage1_plain(image, m)[0], x1p,
+                       front.TC_BLOCKS)
+        r = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: front.fused_front_stage1(image, model,
+                                                        score=score)),
+            plain_ms=cuda_ms(lambda: front.front_stage1_plain(image, model)),
+            **roofline((image, model), (x1k, m1k),
+                       count_flops(front.front_stage1_plain, (image, model)),
+                       TC_PEAK[precision]))
+        del x1k, m1k
+        sp = front_split(front, model, image, score, REPS)
+    r["tflops"] = r["flops"] / r["ms"] / 1e9
+    blocks = ", ".join(f"{sp[f'b1_{i}']:.3f}"
+                       for i in range(1, front.STAGE1_BLOCKS + 1))
+    print(f"front {route} split (batch {n}, {h}x{w}, {precision}, "
+          f"{front.LAUNCHES_PER_CALL} launches): Initial + B1_0 "
+          f"{sp['b10']:.3f} ms, B1_1-4 {blocks} ms (launch errors "
+          f"{sp['b10_err']:.2e}, {sp['blocks_err']:.2e}); the front "
+          f"{r['ms']:.3f} ms = {r['tflops']:.1f} TFLOP/s of least work "
+          f"({r['flops'] / 1e9:.2f} GFLOP), bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})")
+    return x1p, m1p, r
 
 
 def check_mid(model, x1, score: bool) -> tuple:
@@ -446,14 +491,17 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def rounded(model, rnd, fn):
+def rounded(model, rnd, fn, parts=("",)):
     """``fn(m)`` (a plain function of the model) on a copy ``m`` of
     ``model`` with both operands of every product (each conv's and
-    transposed conv's input and weights) rounded by ``rnd`` and float32
-    sums: what a kernel that multiplies at that precision computes."""
+    transposed conv's input and weights) inside the submodules named
+    ``parts`` (the whole model by default) rounded by ``rnd`` and float32
+    sums: what a kernel that multiplies those products at that precision
+    computes."""
     from semanticsegmentationactivelearning_tpu_torch.models import blocks
     m = copy.deepcopy(model)
-    for mod in m.modules():
+    mods = {mod for name in parts for mod in m.get_submodule(name).modules()}
+    for mod in mods:
         if isinstance(mod, (blocks.Conv, blocks.ConvTranspose)):
             mod.weight.data = rnd(mod.weight.data)
             mod.register_forward_pre_hook(
@@ -462,24 +510,26 @@ def rounded(model, rnd, fn):
         return fn(m)
 
 
-# A kernel's output (the tail's x4, the mid's y) against its plain
-# version with every product rounded one precision below the route's
-# (rounded): a route's error must stay under this share of that one, so
-# that a kernel computing at the lower precision fails. A TF32 pass
-# reads 6-11x less than a bf16 one at x4 and 5-12x less at y, 3xTF32
-# about 1e3x less than a TF32 one (tests/test_torch_tail_pack.py,
-# tests/test_torch_mid_pack.py, PERF.md).
+# A kernel's output (the tail's x4, the mid's y, the front's x1) against
+# its plain version with every product that the kernel runs on the
+# tensor cores rounded one precision below the route's (rounded; the
+# front's Initial stays fp32): a route's error must stay under this share
+# of that one, so that a kernel computing at the lower precision fails.
+# A TF32 pass reads 6-11x less than a bf16 one at x4, 5-12x less at y and
+# 6-9x less at x1, 3xTF32 about 1e3x less than a TF32 one
+# (tests/test_torch_{tail,mid,front}_pack.py, PERF.md).
 PRECISION_GATE = {"3xTF32": ("TF32", round_tf32, 0.1),
                   "TF32": ("bf16", round_bf16, 0.5)}
 
 
 def precision_gate(what: str, precision: str, err: float, model, fn,
-                   want) -> None:
+                   want, parts=("",)) -> None:
     """Raise unless ``err`` (a kernel's max |error| against ``want``,
     ``fn(model)``) is under PRECISION_GATE's share of the error of
-    ``fn`` with every product rounded one precision below."""
+    ``fn`` with the products that the kernel runs at ``precision`` (those
+    inside the submodules ``parts``) rounded one precision below."""
     lower, rnd, share = PRECISION_GATE[precision]
-    err_lower = (rounded(model, rnd, fn) - want).abs().max().item()
+    err_lower = (rounded(model, rnd, fn, parts) - want).abs().max().item()
     print(f"{what} ({precision}): max|k-p| {err:.3e}; the plain version "
           f"in {lower} {err_lower:.3e}, the gate {share:g} of it")
     if not err <= share * err_lower:
@@ -581,7 +631,8 @@ def serve(model_state: dict, seed: int):
         times.append((start, end))
     torch.cuda.synchronize()
     launches = [fn.launches for fn in wrappers]
-    per_batch = (1, mid.LAUNCHES_PER_CALL, tail.LAUNCHES_PER_CALL)
+    per_batch = (front.LAUNCHES_PER_CALL, mid.LAUNCHES_PER_CALL,
+                 tail.LAUNCHES_PER_CALL)
     print(f"serve: {len(outs)} batches, launches front/mid/tail "
           f"{launches} (expected {[p * len(outs) for p in per_batch]})")
     if len(outs) != BATCHES or launches != [p * BATCHES for p in per_batch]:
@@ -708,9 +759,9 @@ def check_score_kernels(seed: int) -> dict:
                                           dtype=np.uint8)).cuda()
     image = image.float() / 255.0
     model = score_model(seed, FINAL_SCALE)
-    with torch.no_grad():
-        x1, _ = front.front_stage1_plain(image, model)
-    res = {"mid_score": check_mid(model, x1, score=True)[2]}
+    x1, _, front_score = check_front(model, image, score=True)
+    res = {"front_score": front_score,
+           "mid_score": check_mid(model, x1, score=True)[2]}
     del x1
     for scale in SCORE_SCALES:
         model = score_model(seed, scale)
@@ -815,7 +866,8 @@ def score_pool(seed: int):
     stacks = []
     scores, kernel_ms = timed_scores(score_step, prefetched(host, stacks))
     launches = [fn.launches for fn in wrappers]
-    per_batch = [1, mid.LAUNCHES_PER_CALL, tail.LAUNCHES_PER_CALL, 0, 0, 0]
+    per_batch = [front.LAUNCHES_PER_CALL, mid.LAUNCHES_PER_CALL,
+                 tail.LAUNCHES_PER_CALL, 0, 0, 0]
     print(f"score: {len(scores)} batches, launches front/mid/tail score/"
           f"tail predict/decoder/deconv {launches} (expected "
           f"{[p * POOL_BATCHES for p in per_batch]})")
@@ -852,7 +904,8 @@ def score_pool(seed: int):
               f"time(s); max |k-p| {err:.3e}")
         if fn.launches != 1 or not err <= SCORE_TOL:
             raise AssertionError(f"the {name} route failed")
-    launches = dict(mid_score=launches[1], tail_score=launches[2],
+    launches = dict(front_score=launches[0], mid_score=launches[1],
+                    tail_score=launches[2],
                     **route_launches)
     return launches, kernel_ms, plain_ms
 
@@ -1462,7 +1515,8 @@ def main(argv=None) -> int:
     for ln in ptxas:
         print(f"  {ln}")
     for fn, count in hmma_counts(b.path).items():
-        if any(k in fn for k in ("tail", "b20_kernel", "proj_kernel",
+        if any(k in fn for k in ("b10_kernel", "stage1_kernel", "tail",
+                                 "b20_kernel", "proj_kernel",
                                  "block_kernel")):
             print(f"  SASS: {count} HMMA instructions in {fn}")
 

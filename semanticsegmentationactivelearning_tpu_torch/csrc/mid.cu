@@ -119,9 +119,10 @@ struct BlockParams {
 // y over the tile at (r0, c0): prelu(C @ E.w + E.b + res, E.v), C the
 // spatial conv's output [TN][CS] in shared memory. Warp m takes tile row
 // m, 32 output channels at a time; after a shuffle with the lane beside
-// it each lane holds 4 consecutive channels of one position, so that
-// res(r, c, ch) (the residual's float4 at position (r, c), channels ch ..
-// ch+3) and the store move 16 bytes a lane. A group's residuals are
+// it each lane holds 4 consecutive channels of one position (tc.cuh
+// expand_epilogue), so that res(r, c, ch) (the residual's float4 at
+// position (r, c), channels ch .. ch+3) and the store move 16 bytes a
+// lane. A group's residuals are
 // loaded while the group before it is multiplied.
 template <int PASSES, class Res>
 __device__ __forceinline__ void expand_store(const float* C, const Smem& E,
@@ -157,20 +158,8 @@ __device__ __forceinline__ void expand_store(const float* C, const Smem& E,
                              a1[k + q + 4], E.w + k * E.ws, E.ws, n0);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        // an even lane keeps row g and takes its odd partner's row-g
-        // pair; the odd lane keeps row g+8 and takes the even one's
-        const float s0 = __shfl_xor_sync(0xffffffffu,
-                                         odd ? acc[j][0] : acc[j][2], 1);
-        const float s1 = __shfl_xor_sync(0xffffffffu,
-                                         odd ? acc[j][1] : acc[j][3], 1);
-        float4 v = odd ? make_float4(s0, s1, acc[j][2], acc[j][3])
-                       : make_float4(acc[j][0], acc[j][1], s0, s1);
-        const int ch = n0 + 8 * j + 4 * (q >> 1);
-        const float4 x = cur[j];
-        v.x = prelu(v.x + E.b[ch] + x.x, E.v[ch]);
-        v.y = prelu(v.y + E.b[ch + 1] + x.y, E.v[ch + 1]);
-        v.z = prelu(v.z + E.b[ch + 2] + x.z, E.v[ch + 2]);
-        v.w = prelu(v.w + E.b[ch + 3] + x.w, E.v[ch + 3]);
+        const float4 v =
+            expand_epilogue(acc[j], E, n0 + 8 * j + 4 * (q >> 1), cur[j]);
         if (in) *reinterpret_cast<float4*>(yp + n0 + 8 * j) = v;
         cur[j] = nxt[j];
       }

@@ -1,8 +1,9 @@
-// Tensor-core pieces of the ENet tail and mid kernels (tail.cu, mid.cu):
-// the warp-level TF32 product mma.sync.m16n8k8 with fp32 accumulation,
-// taken once (TF32) or three times over the hi/lo split of both operands
-// (3xTF32, about fp32's accuracy), cp.async copies into shared memory,
-// the GEMM record of a layer's weights and the warp GEMM over records.
+// Tensor-core pieces of the ENet front, mid and tail kernels (front.cu,
+// mid.cu, tail.cu): the warp-level TF32 product mma.sync.m16n8k8 with
+// fp32 accumulation, taken once (TF32) or three times over the hi/lo
+// split of both operands (3xTF32, about fp32's accuracy), cp.async
+// copies into shared memory, the GEMM record of a layer's weights, the
+// warp GEMM over records and an expand's 16-byte epilogue.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4,
 // q = lane % 4: A reg 0/1/2/3 = (row g, col q), (g+8, q), (g, q+4),
@@ -12,6 +13,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace ssal {
 
@@ -203,6 +206,30 @@ __device__ __forceinline__ Smem stage_layer(float* W, const float* pack,
   cp_async_floats(W, pack + L.off, L.size());
   cp_async_wait_sync();
   return smem_layer(W, L);
+}
+
+// An expand's epilogue over columns 8j .. 8j+7 of a warp's 16-row
+// accumulators c (C fragment: rows g, g+8 x columns 2q, 2q+1). After a
+// shuffle with the lane beside it an even lane holds row g's columns
+// 4(q / 2) .. +3 of the eight and an odd lane row g+8's, so that a lane
+// loads its residual and stores its output 16 bytes at a time. Returns
+// them + the bias E.b[ch ..] + res through the PReLU of alpha E.v[ch ..],
+// ch the first one's channel. Every lane of the warp calls it.
+__device__ __forceinline__ float4 expand_epilogue(const float (&c)[4],
+                                                  const Smem& E, int ch,
+                                                  float4 res) {
+  const bool odd = threadIdx.x & 1;
+  // an even lane keeps row g and takes its odd partner's row-g pair; the
+  // odd lane keeps row g+8 and takes the even one's
+  const float s0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+  const float s1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+  float4 v = odd ? make_float4(s0, s1, c[2], c[3])
+                 : make_float4(c[0], c[1], s0, s1);
+  v.x = prelu(v.x + E.b[ch] + res.x, E.v[ch]);
+  v.y = prelu(v.y + E.b[ch + 1] + res.y, E.v[ch + 1]);
+  v.z = prelu(v.z + E.b[ch + 2] + res.z, E.v[ch + 2]);
+  v.w = prelu(v.w + E.b[ch + 3] + res.w, E.v[ch + 3]);
+  return v;
 }
 
 }  // namespace ssal

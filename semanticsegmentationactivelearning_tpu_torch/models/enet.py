@@ -190,7 +190,7 @@ class ENet(PackedModel):
                 f4, switches1 = self(image, return_stage4=True)
                 return decoder.fused_decoder_entropy_score(f4, switches1,
                                                            self)
-            x1, mask1 = front.fused_front_stage1(image, self)
+            x1, mask1 = front.fused_front_stage1(image, self, score=True)
             if fuse_mid:
                 y, sw2 = mid.fused_mid_stage23(x1, self, score=True)
             else:

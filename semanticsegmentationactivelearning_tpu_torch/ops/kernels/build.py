@@ -37,7 +37,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> (argtypes, restype); every launch takes the stream last
 SIGNATURES = {
     "ssal_front_pack_size": ([], _I),
-    "ssal_front": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ssal_front_b10": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_front_block": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssal_mid_pack_size": ([_I], _I),
     "ssal_mid_b20": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_mid_proj": ([_P, _P, _P, _I, _I, _P], _I),

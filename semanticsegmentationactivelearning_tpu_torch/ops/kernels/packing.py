@@ -72,13 +72,13 @@ def bstride(n: int) -> int:
 def gemm_record(w: torch.Tensor, k: int, n: int,
                 vecs=()) -> List[torch.Tensor]:
     """``w [taps, k0, n0]`` zero-padded to ``[taps, k, bstride(n)]``, then
-    each vector zero-padded to ``n``."""
+    each vector zero-padded to ``n``, on ``w``'s device."""
     t, k0, n0 = w.shape
-    out = torch.zeros(t, k, bstride(n))
+    out = torch.zeros(t, k, bstride(n), device=w.device)
     out[:, :k0, :n0] = w
     parts = [out]
     for v in vecs:
-        pv = torch.zeros(n)
+        pv = torch.zeros(n, device=w.device)
         pv[:v.numel()] = v.detach().reshape(-1)
         parts.append(pv)
     return parts

@@ -122,7 +122,8 @@ def test_fused_predict_counts_its_launches(model):
     torch.cuda.synchronize()
     after = [fn.launches for fn in wrappers]
     assert [a - b for a, b in zip(after, before)] == \
-        [1, mid.LAUNCHES_PER_CALL, tail.LAUNCHES_PER_CALL, 0, 0]
+        [front.LAUNCHES_PER_CALL, mid.LAUNCHES_PER_CALL,
+         tail.LAUNCHES_PER_CALL, 0, 0]
     assert labels.dtype == torch.int32 and labels.is_cuda
     with torch.no_grad():
         logits = model(image)
@@ -267,6 +268,81 @@ def test_tail_halves_run_at_their_routes_precision(model, score):
     assert (x4 - f4).abs().max() <= 1e-3 * f4.abs().max()
 
 
+# the front's 16x16 quarter-res tiles: ragged on both axes, one whole
+# tile, a grid smaller than one tile, batch 3
+FRONT_SHAPES = [(2, 72, 136, 3), (1, 64, 64, 3), (1, 8, 8, 3),
+                (3, 64, 96, 3)]
+
+
+def _check_front(model, image, x1, m1, score):
+    """x1 within 1e-3 of the plain maximum and under chip_smoke's
+    precision gate; mask1 one-hot, exact where the pooled window of
+    Initial's output is decided."""
+    from chip_smoke import precision_gate  # the repo root, on sys.path
+    x1p, m1p = front.front_stage1_plain(image, model)
+    n, h, w, _ = image.shape
+    err = (x1 - x1p).abs().max().item()
+    assert x1.shape == x1p.shape and err <= 1e-3 * x1p.abs().max().item()
+    precision_gate("front x1", front.PRECISION["score" if score
+                                               else "predict"],
+                   err, model, lambda m: front.front_stage1_plain(image, m)[0],
+                   x1p, front.TC_BLOCKS)
+    win = m1.reshape(n, h // 4, w // 4, 4, 16)
+    assert ((m1 == 0) | (m1 == 1)).all() and (win.sum(3) == 1).all()
+    gap = _gap(model.Initial(image))
+    swp = m1p.reshape(n, h // 4, w // 4, 4, 16).argmax(3)
+    assert torch.equal(win.argmax(3)[gap > 1e-4], swp[gap > 1e-4])
+
+
+@pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
+@pytest.mark.parametrize("shape", FRONT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_front_kernels_match_plain_version_per_route(model, shape, score):
+    """The front's kernels on each route against the plain front;
+    LAUNCHES_PER_CALL launches a call."""
+    image = _image(shape, 12)
+    with torch.no_grad():
+        before = front.fused_front_stage1.launches
+        x1, m1 = front.fused_front_stage1(image, model, score=score)
+        torch.cuda.synchronize()
+        assert front.fused_front_stage1.launches - before == \
+            front.LAUNCHES_PER_CALL
+        _check_front(model, image, x1, m1, score)
+
+
+@pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
+@pytest.mark.parametrize("shape", [(2, 72, 136, 3), (1, 8, 8, 3),
+                                   (3, 64, 96, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_front_launches_match_their_plain_halves(model, shape, score):
+    """``ssal_front_b10`` against Initial + B1_0, and each stage-1
+    bottleneck's launch against the model's block on the same input."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        build)
+    image = _image(shape, 13)
+    lib = build.library()
+    pack = model.packed("front", image.device, front.pack_front)
+    n, h, w, _ = image.shape
+    stream = build.stream_of(image)
+    with torch.no_grad():
+        want, _ = front.b10_plain(image, model)
+        x = torch.empty_like(want)
+        m1 = torch.empty_like(want)
+        build.check(lib.ssal_front_b10(
+            build.ptr(image), build.ptr(pack), build.ptr(x), build.ptr(m1),
+            n, h, w, int(score), stream), "front B1_0")
+        torch.testing.assert_close(x, want, rtol=1e-3, atol=1e-3)
+        for index in range(front.STAGE1_BLOCKS):
+            y = torch.empty_like(want)
+            build.check(lib.ssal_front_block(
+                build.ptr(want), build.ptr(pack), build.ptr(y), n, h // 4,
+                w // 4, index, int(score), stream), "front stage-1")
+            want = front.block_plain(want, model, index)
+            err = (y - want).abs().max().item()
+            assert err <= 1e-3 * want.abs().max().item()
+        torch.cuda.synchronize()
+
+
 # ragged tiles, one tile, a grid narrower than dilation 16, batch 3
 MID_SHAPES = [(2, 72, 280, 3), (1, 128, 128, 3), (1, 136, 40, 3),
               (3, 64, 96, 3)]
@@ -325,7 +401,8 @@ SCORE_ROUTES = [
 def test_fused_score_routes_count_their_launches(model, flags, shape,
                                                  route):
     image = _image(shape, 7)
-    wrappers = {"tail": tail.fused_tail_entropy_score,
+    wrappers = {"front": front.fused_front_stage1,
+                "tail": tail.fused_tail_entropy_score,
                 "decoder": decoder.fused_decoder_entropy_score,
                 "deconv": deconv_score.fused_deconv_entropy_score,
                 "tail_stage4": tail.fused_tail_stage4,
@@ -336,7 +413,12 @@ def test_fused_score_routes_count_their_launches(model, flags, shape,
     rose = {k: fn.launches - before[k] for k, fn in wrappers.items()}
     per_call = {"tail": tail.LAUNCHES_PER_CALL, "decoder": 1, "deconv": 1,
                 "tail_stage4": 0, "tail_decode": 0}
-    assert rose == {k: per_call[k] * int(k == route) for k in wrappers}
+    # the entropy routes on the decoder score kernel's side run the front
+    # on inputs at least 24 rows tall
+    front_calls = int(flags.get("fuse_decoder", True) and shape[1] >= 24)
+    want = {k: per_call[k] * int(k == route) for k in per_call}
+    want["front"] = front.LAUNCHES_PER_CALL * front_calls
+    assert rose == want
     with torch.no_grad():
         want = acquisition.mean_confidence(model(image), "entropy", C)
     assert (got - want).abs().max().item() <= 1e-4
