@@ -9,8 +9,8 @@ Phases (any failure raises, so the exit code is not 0):
   2. build: nvcc compiles the kernels of
      semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a, one
      process per source; prints ptxas's registers and spills and the
-     HMMA (tensor-core) instruction count of each front, mid and tail
-     kernel's SASS.
+     HMMA (tensor-core) instruction count of each front, mid, tail and
+     CFF2 + head kernel's SASS (each CFF2 + head instance must have some).
   3. kernels: the serving kernels (front, mid, tail predict) against
      their plain PyTorch versions on the same inputs at ENet-19, batch 2,
      1024x2048, with seeded weights (glorot-uniform convs, noised BN
@@ -59,7 +59,11 @@ Phases (any failure raises, so the exit code is not 0):
         against their plain versions on the same inputs: f1 and stem1 to
         1e-3 of their maximum, x_half to 1e-5, scores to 1e-4 per image
         and bit-equal from run to run, with the classifier x5, x1, x25
-        and x1000; each one's time beside its plain version's;
+        and x1000; each one's time beside its plain version's; the CFF2
+        + head kernel's split (the GEMM alone, its fused8 to 1e-3 of the
+        plain maximum and under PRECISION_GATE, and the head end) and its
+        TFLOP/s of least work, its bound at its route's precision, and
+        its scores under PRECISION_GATE with CFF2's products rounded;
      b. the pool: 6 uint8 batches through device_prefetch, /255 and
         make_score_step(icnet, 19, "entropy"), with the counters zeroed
         before (front+stem and CFF2 + head once a batch); the scores
@@ -74,7 +78,9 @@ Phases (any failure raises, so the exit code is not 0):
         fused8), with the classifier x5 and x25: no label may differ
         where the plain logits' top-2 margin exceeds 1e-3, and at least
         99% of the pixels must be so decided; each one's time beside its
-        plain version's;
+        plain version's; the CFF2 + head kernel's split and gate as in 7a
+        (fused8 in 3xTF32) and the decided labels that its plain version
+        in TF32 moves;
      b. serving: 10 uint8 batches through device_prefetch and
         make_predict_fn, with the counters zeroed before (front+stem and
         CFF2 + head predict once a batch); the maps against the plain
@@ -515,9 +521,10 @@ def rounded(model, rnd, fn, parts=("",)):
 # tensor cores rounded one precision below the route's (rounded; the
 # front's Initial stays fp32): a route's error must stay under this share
 # of that one, so that a kernel computing at the lower precision fails.
-# A TF32 pass reads 6-11x less than a bf16 one at x4, 5-12x less at y and
-# 6-9x less at x1, 3xTF32 about 1e3x less than a TF32 one
-# (tests/test_torch_{tail,mid,front}_pack.py, PERF.md).
+# A TF32 pass reads 6-11x less than a bf16 one at x4, 5-12x less at y,
+# 6-9x less at x1, 7.5x at ICNet's fused8 and 10.7x at its scores,
+# 3xTF32 about 1e3x less than a TF32 one (48x at fused8)
+# (tests/test_torch_{tail,mid,front,cff2}_pack.py, PERF.md).
 PRECISION_GATE = {"3xTF32": ("TF32", round_tf32, 0.1),
                   "TF32": ("bf16", round_bf16, 0.5)}
 
@@ -1010,6 +1017,53 @@ def icnet_head_flops(n: int, h8: int, w8: int, c: int) -> float:
             + softmax_flops(n, 8 * h8, 8 * w8, c))
 
 
+def peak(name: str) -> float:
+    """The peak rate of an ICNet kernel: the CFF2 + head kernel's on the
+    tensor cores at its route's precision (icnet_head.PRECISION), the
+    others' fp32."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_head)
+    if not name.startswith("icnet_cff2_head"):
+        return PEAK_FLOPS
+    return TC_PEAK[icnet_head.PRECISION[name.rsplit("_", 1)[1]]]
+
+
+def cff2_split(model, fused16, f1, fused8, r: dict, score: bool) -> dict:
+    """The CFF2 + head kernel's split on the inputs of its check: the GEMM
+    alone (fused8 at the route's precision, held to 1e-3 of the plain
+    CFF2's maximum and to PRECISION_GATE with CFF2's products rounded),
+    the head end (the whole kernel less the GEMM), and the kernel's
+    TFLOP/s of least work (``r``'s flops over its ms)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_head)
+    route = "score" if score else "predict"
+    precision = icnet_head.PRECISION[route]
+    kind = f"fused8_{route}"
+    with torch.no_grad():
+        f8k = icnet_head.launch_cff2(kind, fused16, f1, model)
+        err = (f8k - fused8).abs().max().item()
+        bound = 1e-3 * fused8.abs().max().item()
+        del f8k
+        if not err <= bound:
+            raise AssertionError(f"cff2 fused8 ({route}): max err {err} > "
+                                 f"{bound}")
+        precision_gate(f"cff2 fused8, {route}", precision, err, model,
+                       lambda m: m.CFF2(fused16, f1)[0], fused8, ("CFF2",))
+        gemm_ms = cuda_ms(
+            lambda: icnet_head.launch_cff2(kind, fused16, f1, model))
+    out = dict(gemm_ms=gemm_ms, head_end_ms=r["ms"] - gemm_ms,
+               tflops=r["flops"] / r["ms"] / 1e9)
+    n, h8, w8, _ = fused8.shape
+    print(f"cff2 + head {route} split (batch {n}, {8 * h8}x{8 * w8}, "
+          f"{precision}): the GEMM alone {gemm_ms:.3f} ms (fused8 max|k-p| "
+          f"{err:.3e}, bound {bound:.3e}), the head end "
+          f"{out['head_end_ms']:.3f} ms; the kernel {r['ms']:.3f} ms = "
+          f"{out['tflops']:.1f} TFLOP/s of least work "
+          f"({r['flops'] / 1e9:.2f} GFLOP), bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']}, {precision})")
+    return out
+
+
 def check_icnet_kernels(seed: int) -> dict:
     """Phase 7a: each ICNet kernel against its plain version on the same
     inputs (the plain chain's activations of one seeded batch): the
@@ -1092,7 +1146,16 @@ def check_icnet_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
-                    r.update(roofline(args, (got,), flops))
+                    r.update(roofline(args, (got,), flops, peak(name)))
+                    if name == "icnet_cff2_head_score":
+                        # the scores the kernel writes, and its GEMM alone
+                        precision_gate(
+                            "cff2 + head scores", icnet_head.PRECISION[
+                                "score"], err, model,
+                            lambda m: icnet_head.cff2_head8_entropy_score_plain(
+                                fused16, f1, m), want, ("CFF2",))
+                        r.update(cff2_split(model, fused16, f1, fused8, r,
+                                            score=True))
         del f1, x_half, stem1, fused16, fused8
     for k in ("icnet_front", "icnet_front_stem", "icnet_cff2_head_score",
               "icnet_head8_score"):
@@ -1254,7 +1317,21 @@ def check_icnet_predict_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
-                    r.update(roofline(args, (got,), flops))
+                    r.update(roofline(args, (got,), flops, peak(name)))
+                    if name == "icnet_cff2_head_predict":
+                        # the labels of the plain version with CFF2's
+                        # products in TF32, one precision below the route
+                        lower = rounded(
+                            model, round_tf32,
+                            lambda m: icnet_head.cff2_head8_predict_plain(
+                                fused16, f1, m), ("CFF2",))
+                        moved = int(((lower.long() != want)
+                                     & decided).sum().item())
+                        print(f"{name}: the plain version in TF32 moves "
+                              f"{moved} decided labels, the kernel {bad}")
+                        del lower
+                        r.update(cff2_split(model, fused16, f1, fused8, r,
+                                            score=False))
             if scale == ICNET_CLS_SCALE:
                 # the score twins on the same inputs: their cost at batch 2
                 cff2_ms = cuda_ms(
@@ -1517,8 +1594,10 @@ def main(argv=None) -> int:
     for fn, count in hmma_counts(b.path).items():
         if any(k in fn for k in ("b10_kernel", "stage1_kernel", "tail",
                                  "b20_kernel", "proj_kernel",
-                                 "block_kernel")):
+                                 "block_kernel", "cff2_head_kernel")):
             print(f"  SASS: {count} HMMA instructions in {fn}")
+            if "cff2_head_kernel" in fn and not count:
+                raise AssertionError(f"{fn} runs no tensor-core product")
 
     # 3. kernels against their plain versions
     state = seeded_state_dict(get_model("ENet", CLASSES), args.seed)

@@ -198,7 +198,7 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// The ICNet kernels' convolution (icnet_front.cu, icnet_head.cu): over
+// The ICNet front kernels' convolution (icnet_front.cu): over
 // the rectangle `out` of dst's grid,
 //   dst[r][c][oc] = act(b[oc] + sum_{kh,kw,ic}
 //       src[S*r + kh*D - P][S*c + kw*D - P][ic] * w[kh][kw][ic][oc])

@@ -1,7 +1,7 @@
 // ICNet's heads: the classifier + 8x upsample head ending in the
 // per-image mean entropy confidence (score) or in per-pixel labels
 // (predict), from fused8 (head8_kernel) or from CFF2's inputs
-// (cff2_head_kernel). One template parameter, kPredict, picks the end.
+// (cff2_head_kernel).
 //
 // head8_kernel replaces fused_head8_entropy_score and fused_head8_predict
 // (ops/pallas_kernels.py:198 and :267, body _head8_kernel :112): fused8
@@ -22,49 +22,61 @@
 // which reproduces both resizes' edge clamp; then either the softmax
 // entropy confidence online over the classes (decoder.cuh EntropyAcc)
 // or a running first-max argmax over the classes in order (strict >,
-// jnp.argmax's lowest-index tie rule, pallas_kernels.py:166-171). Note
-// the two edge rules of the CFF2 kernel: the conv pads with zeros, the
-// head clamps to fused8's own boundary row.
+// jnp.argmax's lowest-index tie rule, pallas_kernels.py:166-171). The
+// upsample is separable: a thread takes one pixel row 8r+t and one
+// 1/8-res column c, blends the three logit rows by t for columns c-1,
+// c, c+1 (9 multiply-adds a class), then the three columns by u for
+// its 8 pixels (24), about 4 a pixel and class instead of 9. Note the
+// two edge rules of the CFF2 kernel: the conv pads with zeros, the head
+// clamps to fused8's own boundary row.
 //
 // Score: each block writes one partial sum of pixel confidences 1 -
 // H/log C, [N, blocks], summed in a fixed order (decoder.cuh
 // block_partial, no atomics), so that a score is bit-repeatable; the
 // wrapper divides the row sums by the pixel count, as the JAX wrappers
-// do. Predict: the block's 64 x 64 int8 labels are staged in shared
-// memory and stored as 8-byte row pieces straight to labels [N, 8*H8,
-// 8*W8] at (8r+t, 8c+u) (no lane-tile unpack as on the TPU); a ragged
-// tile stores only its in-grid positions, each a whole 8-byte piece.
+// do. Predict: a thread stores its 8 labels as one 8-byte piece of
+// labels [N, 8*H8, 8*W8] at (8r+t, 8c); a ragged tile stores only its
+// in-grid pieces.
 //
-// What bounds them on an H100: fp32 FMAs on the CUDA cores, and for the
-// head alone its reads. Per 1024x2048 image at 19 classes: the dilated
-// conv 4.83 G multiply-adds, the 1x1 0.27 G, the head about 0.7 G
-// (multiply-adds and exps; the argmax has compares in place of the
-// exps), ~11 GFLOP an image (~1.35 ms at batch 8 and the 67 TFLOP/s fp32
-// peak); the head alone reads 16.8 MB of fused8 an image, and predict
-// writes 2.1 MB of labels.
+// What bounds the CFF2 kernel on an H100: its products. Per 1024x2048
+// image at 19 classes the dilated conv is 4.83 G multiply-adds, the 1x1
+// 0.27 G, the head about 0.7 G (multiply-adds and exps): ~10.8 GFLOP,
+// 0.175 ms at batch 8 and the 495 TFLOP/s of one TF32 pass (0.129 ms
+// for batch 2 in 3xTF32, 165 TFLOP/s), against 12.6 MB of input an
+// image. The fp32 design it replaces ran the conv as FMAs on the CUDA
+// cores (11% of the fp32 peak) and streamed the 590 KB conv weights
+// through L2 once per work item, 8.8 MB a block.
 //
-// Design: one block per (image, 8x8 tile of 1/8-res positions). The head
-// kernel stages the tile's fused8 with a one-position halo and computes
-// the classifier logits over it (62 KB at 19 classes). The CFF2
-// kernel stages fused16 under the tile (clamped reads), upsamples it to
-// a 14x14 window of 1/8-res positions (zero outside the grid), runs the
-// dilated conv over the 10x10 positions the head needs (conv_tile,
-// common.cuh, 7 positions x 8 channels a thread), adds the f1 branch,
-// applies ReLU and the classifier: 153 KB of shared memory, one block
-// per SM. fp32 storage and accumulation.
+// Design: CFF2 is one implicit GEMM on the tensor cores (tc.cuh
+// mma.sync m16n8k8; 3xTF32 for labels, one TF32 pass for scores,
+// ops/kernels/icnet_head.py PRECISION; the classifier 3xTF32 on both):
+// for each position p of the head's rectangle (a 16x8 tile and a
+// one-position halo, 18x10 = 180 rows, 1.41x the tile), acc[p] = [the
+// nine dilated taps of the upsampled fused16 (9 x 128) | f1 (64)] @
+// [kc ; kh], K = 1216, N = 128, + (bc + bh), ReLU: the low conv and the
+// high 1x1 share one accumulator, as they are summed before the ReLU.
+// The weights are one GEMM record (bank-safe stride 136) that streams
+// through a 3-stage cp.async ring in chunks of 32 k rows, so each chunk
+// is read once a block and serves every row of it (0.66 MB a block).
+// Each of 12 warps holds 32 rows x 64 channels in registers for the
+// whole K loop. Its A fragments are blended from fused16 (staged under
+// the tile) as they are read, four reads a value: a staged 2x upsample
+// would not fit beside the ring at this tile. The classifier is a
+// second GEMM (N = C padded to 8s, padded classes never stored) on the
+// ReLU'd fused8, which replaces the buffers in shared memory, with each
+// out-of-grid position of the rectangle reading its clamped neighbour;
+// then head8(). fp32 storage and accumulation everywhere. 189 KB of
+// shared memory, one block of 384 threads an SM. head8_kernel stages
+// fused8 over its 8x8 tile's rectangle and runs the classifier as fp32
+// FMAs (its products are 1/10 of the CFF2 kernel's), then the same
+// head8().
 #include "decoder.cuh"
+#include "tc.cuh"
 
 namespace ssal {
 namespace {
 
-constexpr int HT = 8;  // 1/8-res tile side of both kernels
-constexpr int HS = HT + 2;  // with the head's one-position halo
-constexpr int THREADS = 256;
 constexpr int MAX_CLASSES = 128;
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-// the block's last shared floats: score's reduction slots or predict's
-// 64 x 64 int8 labels
-constexpr int TAIL_F = cmax(THREADS, 64 * 64 / 4);
 
 // _HEAD8_W: output phase t of the composed upsample draws on 1/8-res
 // rows (i-1, i, i+1) with these weights (x32)
@@ -74,89 +86,79 @@ __constant__ float kHead8W[8][3] = {
     {3.f / 32, 24.f / 32, 5.f / 32},  {1.f / 32, 24.f / 32, 7.f / 32},
     {0.f, 22.f / 32, 10.f / 32},      {0.f, 18.f / 32, 14.f / 32}};
 
-// The head over the tile's own positions {R0, C0, HT, HT}: CL holds the
-// classifier logits (C per position) over {R0-1, C0-1, HS, HS}, each
-// out-of-grid position holding its clamped neighbour's. Score: returns
-// this thread's sum of pixel confidences. Predict: writes each pixel's
-// label to lab[(8*(r-R0) + t) * 64 + 8*(c-C0) + u] and returns 0. A warp
-// takes the 32 pixels of one position and half its row phases, so every
-// logit read is a broadcast.
-template <bool kPredict>
-__device__ float head8(const float* CL, int C, int R0, int C0, int H8,
-                       int W8, signed char* lab) {
+// The head over the tile {R0, C0, TR, TC} of image n: CL holds the
+// classifier logits (C a position) over the rectangle {R0-1, C0-1,
+// TR+2, TC+2}, each out-of-grid position holding its clamped
+// neighbour's. Score: returns this thread's sum of pixel confidences.
+// Predict: stores each item's 8 labels to labels and returns 0. An item
+// is (pixel row 8r+t, 1/8-res column c); a warp takes the TC columns of
+// a few row phases, so its logit reads hit TC addresses.
+template <bool kPredict, int TR, int TC>
+__device__ float head8(const float* CL, int C, int n, int R0, int C0,
+                       int H8, int W8, signed char* __restrict__ labels) {
+  constexpr int RW = TC + 2;
   const float inv_log_c = 1.f / logf((float)C);
   float acc = 0.f;
-  for (int it = threadIdx.x; it < HT * HT * 64; it += blockDim.x) {
-    const int ph = it % 64, p = it / 64;
-    const int t = ph >> 3, u = ph & 7;
-    const int r = R0 + p / HT, c = C0 + p % HT;
+  for (int it = threadIdx.x; it < TR * 8 * TC; it += blockDim.x) {
+    const int pc = it % TC, t = it / TC % 8, pr = it / (8 * TC);
+    const int r = R0 + pr, c = C0 + pc;
     if (r >= H8 || c >= W8) continue;
-    float wt[3][3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b) wt[a][b] = kHead8W[t][a] * kHead8W[u][b];
+    const float w0 = kHead8W[t][0], w1 = kHead8W[t][1], w2 = kHead8W[t][2];
     // CL position (r-1, c-1), relative to the rectangle's origin
-    const float* q = CL + ((r - R0) * HS + (c - C0)) * C;
-    auto logit = [&](int cls) {
-      float l = 0.f;
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int b = 0; b < 3; ++b) l += wt[a][b] * q[(a * HS + b) * C + cls];
-      return l;
+    const float* x = CL + (pr * RW + pc) * C;
+    // row-blended logit of class cls at column c-1+b
+    const auto col = [&](int b, int cls) {
+      const float* y = x + b * C + cls;
+      return w0 * y[0] + w1 * y[RW * C] + w2 * y[2 * RW * C];
     };
     if constexpr (kPredict) {
-      float best = logit(0);
-      int label = 0;
-      for (int cls = 1; cls < C; ++cls) {
-        const float l = logit(cls);
-        if (l > best) best = l, label = cls;
+      float best[8];
+      int lab[8];
+      for (int cls = 0; cls < C; ++cls) {
+        const float v0 = col(0, cls), v1 = col(1, cls), v2 = col(2, cls);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float l =
+              kHead8W[u][0] * v0 + kHead8W[u][1] * v1 + kHead8W[u][2] * v2;
+          if (cls == 0 || l > best[u]) best[u] = l, lab[u] = cls;
+        }
       }
-      lab[(8 * (r - R0) + t) * 64 + 8 * (c - C0) + u] = (signed char)label;
+      unsigned long long piece = 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        piece |= (unsigned long long)(unsigned char)lab[u] << (8 * u);
+      *reinterpret_cast<unsigned long long*>(
+          labels + ((size_t)n * 8 * H8 + 8 * r + t) * 8 * W8 + 8 * c) = piece;
     } else {
-      EntropyAcc ent;
-      for (int cls = 0; cls < C; ++cls) ent.add(logit(cls), cls == 0);
-      acc += ent.conf(inv_log_c);
+      EntropyAcc ent[8];
+      for (int cls = 0; cls < C; ++cls) {
+        const float v0 = col(0, cls), v1 = col(1, cls), v2 = col(2, cls);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          ent[u].add(
+              kHead8W[u][0] * v0 + kHead8W[u][1] * v1 + kHead8W[u][2] * v2,
+              cls == 0);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc += ent[u].conf(inv_log_c);
     }
   }
   return acc;
 }
 
-// The tile's staged labels (head8<true>) -> labels [N, 8*H8, 8*W8]: one
-// 8-byte piece per (pixel row, 1/8-res column), so a ragged tile stores
-// only whole in-grid pieces; a warp stores four 64-byte row runs.
-__device__ void store_labels(const signed char* lab,
-                             signed char* __restrict__ labels, int n, int R0,
-                             int C0, int H8, int W8) {
-  for (int it = threadIdx.x; it < 64 * HT; it += blockDim.x) {
-    const int i = it / HT, pc = it % HT;  // tile pixel row, 1/8-res column
-    const int row = 8 * R0 + i, c = C0 + pc;
-    if (R0 + i / 8 >= H8 || c >= W8) continue;
-    const size_t off = ((size_t)n * 8 * H8 + row) * 8 * W8 + 8 * c;
-    *reinterpret_cast<unsigned long long*>(labels + off) =
-        *reinterpret_cast<const unsigned long long*>(lab + i * 64 + 8 * pc);
-  }
+// The block's score partial, at its (image, tile) slot of [N, blocks].
+__device__ __forceinline__ void store_partial(float v, float* slots,
+                                              float* partials, int n) {
+  block_partial(v, slots,
+                partials + ((size_t)n * gridDim.y + blockIdx.y) * gridDim.x +
+                    blockIdx.x);
 }
 
-// The kernels' common end over the tile {R0, C0} of image n, CL holding
-// the classifier logits: the partial confidence sum of the block or its
-// labels; tail is TAIL_F shared floats.
-template <bool kPredict>
-__device__ void head8_end(const float* CL, float* tail, int C, int n, int R0,
-                          int C0, int H8, int W8, float* partials,
-                          signed char* labels) {
-  signed char* lab = reinterpret_cast<signed char*>(tail);
-  const float v = head8<kPredict>(CL, C, R0, C0, H8, W8, lab);
-  if constexpr (kPredict) {
-    __syncthreads();
-    store_labels(lab, labels, n, R0, C0, H8, W8);
-  } else {
-    block_partial(v, tail,
-                  partials + ((size_t)n * gridDim.y + blockIdx.y) * gridDim.x +
-                      blockIdx.x);
-  }
-}
+// -- head8_kernel ------------------------------------------------------------
+
+constexpr int HT = 8;       // its 1/8-res tile side
+constexpr int HS = HT + 2;  // with the head's one-position halo
+constexpr int THREADS = 256;
 
 // CL[p][cls] = bcls + sum_k X[clamp(p)][k] wcls[k][cls] over the head's
 // rectangle {R0-1, C0-1, HS, HS}, p clamped to the H8 x W8 grid. X is a
@@ -177,10 +179,9 @@ __device__ void classify(const Buf X, float* CL, const float* __restrict__ wcls,
 }
 
 constexpr int H8_F = HS * HS * 129;  // fused8 over the head's rectangle
-// + the classifier logits (C a position; HS * HS is even, so the tail
-// stays 8-byte aligned) and the tail
+// + the classifier logits (C a position) and score's reduction slots
 inline size_t head_smem_bytes(int num_classes) {
-  return (size_t)(H8_F + HS * HS * num_classes + TAIL_F) * 4;
+  return (size_t)(H8_F + HS * HS * num_classes + THREADS) * 4;
 }
 
 // Score writes partials, predict labels; the other pointer is unused.
@@ -204,105 +205,232 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   classify(X, CL, wcls, bcls, C, R0, C0, H8, W8);
   __syncthreads();
-  head8_end<kPredict>(CL, CL + HS * HS * C, C, n, R0, C0, H8, W8, partials,
-                      labels);
+  const float v = head8<kPredict, HT, HT>(CL, C, n, R0, C0, H8, W8, labels);
+  if constexpr (!kPredict) store_partial(v, CL + HS * HS * C, partials, n);
 }
 
-// The CFF2 kernel's buffers: fused16 under the tile (clamped), its 2x
-// upsample over {R0-3, C0-3, HT+6, HT+6}, and fused8 over the head's
-// rectangle (aliasing fused16's buffer once the upsample is done); the
-// classifier logits and the tail alias the upsample's.
-constexpr int F16_S = HT / 2 + 4;
-constexpr int LU_S = HT + 6;
-constexpr int F_F = cmax(F16_S * F16_S, HS * HS) * 129;
-constexpr int LU_F = LU_S * LU_S * 129;
-constexpr size_t CFF2_SMEM_BYTES = (size_t)(F_F + LU_F) * 4;
-static_assert(CFF2_SMEM_BYTES <= 232448, "227 KB of shared memory a block");
-static_assert(HS * HS * MAX_CLASSES + TAIL_F <= LU_F,
-              "logits and the tail fit in the upsample's buffer");
-static_assert((F_F + LU_F - TAIL_F) % 2 == 0, "the tail is 8-byte aligned");
+// -- cff2_head_kernel ----------------------------------------------------------
 
-struct Cff2Params {
-  const float* kc;    // [3][3][128][128] low conv, BN folded
-  const float* bc;    // [128]
-  const float* kh;    // [64][128] high 1x1, BN folded
-  const float* bh;    // [128]
-  const float* wcls;  // [128][C]
-  const float* bcls;  // [C]
-};
+constexpr int AS = 132;   // channel stride of fused16 and fused8
+constexpr int F1S = 68;   // of f1 (both = 4 mod 32: A reads hit 32 banks)
+constexpr int KMAIN = 9 * 128 + 64;  // [dilated taps | f1] rows of the record
+constexpr int WS = 136;   // the record's row stride (bstride(128))
+constexpr int KC = 32;    // k rows a ring chunk
+constexpr int STAGES = 3;
+constexpr int CHUNK_F = KC * WS;
+constexpr int NCHUNKS = KMAIN / KC;  // 36 for the taps, 2 for f1
+constexpr int TAP_CHUNKS = 128 / KC;
+static_assert(KMAIN % KC == 0 && 64 % KC == 0, "whole chunks");
 
-template <bool kPredict>
-__global__ void __launch_bounds__(THREADS)
+// The tile: TR x TC 1/8-res positions, its head rectangle with a
+// one-position halo (M rows of the GEMM); a warp takes MT row tiles of
+// 16 x 64 channels (NT = 8 n-tiles). tools/probe_cff2.py measured 8x8
+// tiles with the upsample staged in shared memory slower: 6-10% (score)
+// and 13-23% (predict) in 8 warps of 32 rows, 23-26% and 39-47% in 14
+// warps of 16 (PERF.md).
+constexpr int TR = 16, TC = 8, MT = 2, NT = 8;
+constexpr int RH = TR + 2, RW = TC + 2, M = RH * RW;
+constexpr int NG = 128 / (8 * NT);
+constexpr int CFF2_THREADS = 32 * ((M + 16 * MT - 1) / (16 * MT)) * NG;
+static_assert(CFF2_THREADS == 384, "12 warps of 32 rows x 64 channels");
+// fused16 under the tile (clamped): rows R0/2-2 .. R0/2+TR/2+1
+constexpr int YH = TR / 2 + 4, YW = TC / 2 + 4;
+constexpr int Y_F = YH * YW * AS;
+constexpr int F1_F = M * F1S;
+constexpr int RING_F = STAGES * CHUNK_F;
+// after the GEMM: fused8 over the rect, the logits, the slots
+constexpr int F8_F = M * AS;
+constexpr int SLOTS = F8_F + M * MAX_CLASSES;
+constexpr size_t CFF2_SMEM =
+    (size_t)cmax(Y_F + F1_F + RING_F, SLOTS + CFF2_THREADS) * 4;
+static_assert(CFF2_SMEM <= 232448, "227 KB of shared memory a block");
+
+enum { OUT_SCORE, OUT_PREDICT, OUT_FUSED8 };
+
+// The classifier's products run in 3xTF32 on both routes (1.7% of the
+// kernel's): its weights rounded to TF32 shift every pixel's logits
+// alike, which a mean over the pixels does not average away (in one
+// pass they took the error of a score at the classifier x5 from 5.9e-5
+// to 9.8e-5 of the 1e-4 gate; PERF.md).
+constexpr int kClassifierPasses = 3;
+
+// kOut: the head's partials (score) or labels (predict), or fused8 for
+// the tile's positions (the GEMM alone); out is partials or fused8.
+// PASSES: CFF2's products in 1 (TF32) or 3 (3xTF32) passes. cls_ws: the
+// classifier record's stride (its n is C padded to 8s).
+template <int kOut, int PASSES>
+__global__ void __launch_bounds__(CFF2_THREADS, 1)
     cff2_head_kernel(const float* __restrict__ f16,
-                     const float* __restrict__ f1, const Cff2Params P,
-                     float* __restrict__ partials,
+                     const float* __restrict__ f1,
+                     const float* __restrict__ pack, int cls_ws,
+                     float* __restrict__ out,
                      signed char* __restrict__ labels, int H8, int W8,
                      int C) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.z;
-  const int R0 = blockIdx.y * HT, C0 = blockIdx.x * HT;
+  const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TC;
   const int H16 = H8 / 2, W16 = W8 / 2;
-  float* const LUp = smem + F_F;
+  float* const Y = smem;
+  float* const F1 = Y + Y_F;
+  float* const ring = F1 + F1_F;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int warp = threadIdx.x >> 5;
 
-  // 1. fused16 rows/cols R0/2-2 .. R0/2+HT/2+1, read clamped to the grid
-  const Buf Y = {smem, {R0 / 2 - 2, C0 / 2 - 2, F16_S, F16_S}, 129};
+  // 1. copies: fused16 under the tile (clamped reads), f1 over the rect
+  //    (zero outside the grid) and the record's first chunk (group 0),
+  //    its second chunk (group 1)
+  const int yr0 = R0 / 2 - 2, yc0 = C0 / 2 - 2;
   const float* fn = f16 + (size_t)n * H16 * W16 * 128;
-  for (int t = threadIdx.x; t < F16_S * F16_S * 128; t += blockDim.x) {
-    const int p = t / 128;
-    const int r = clampi(Y.r.row(p), 0, H16 - 1);
-    const int c = clampi(Y.r.col(p), 0, W16 - 1);
-    Y.p[p * 129 + t % 128] = __ldg(fn + ((size_t)r * W16 + c) * 128 + t % 128);
+  for (int i = threadIdx.x; i < YH * YW * 32; i += blockDim.x) {
+    const int p = i / 32, k = i % 32 * 4;
+    const int r = clampi(yr0 + p / YW, 0, H16 - 1);
+    const int c = clampi(yc0 + p % YW, 0, W16 - 1);
+    cp_async16(Y + p * AS + k, fn + ((size_t)r * W16 + c) * 128 + k);
   }
-  __syncthreads();
-
-  // 2. the 2x upsample: row 2i -> .25 y[i-1] + .75 y[i], row 2i+1 ->
-  //    .75 y[i] + .25 y[i+1], the same on columns; zero outside the grid
-  //    (the dilated conv's SAME padding)
-  const Buf LU = {LUp, {R0 - 3, C0 - 3, LU_S, LU_S}, 129};
-  for (int t = threadIdx.x; t < LU_S * LU_S * 128; t += blockDim.x) {
-    const int ch = t % 128, p = t / 128;
-    const int r = LU.r.row(p), c = LU.r.col(p);
-    float v = 0.f;
-    if (inside(r, c, H8, W8)) {
-      const int i = (r >> 1) - 1 + (r & 1), j = (c >> 1) - 1 + (c & 1);
-      const float wr0 = (r & 1) ? 0.75f : 0.25f, wc0 = (c & 1) ? 0.75f : 0.25f;
-      const float* y0 = Y.at(i, j) + ch;
-      const float* y1 = Y.at(i + 1, j) + ch;
-      const float cl = wr0 * y0[0] + (1.f - wr0) * y1[0];
-      const float cr = wr0 * y0[129] + (1.f - wr0) * y1[129];
-      v = wc0 * cl + (1.f - wc0) * cr;
-    }
-    LU.p[p * 129 + ch] = v;
-  }
-  __syncthreads();
-
-  // 3. the dilation-2 3x3 conv (BN folded, bias bc) over the head's
-  //    rectangle, into fused16's buffer
-  const Buf F8 = {smem, {R0 - 1, C0 - 1, HS, HS}, 129};
-  conv_tile<128, 128, 3, 1, 2, 2, 7, false>(LU, F8, F8.r, P.kc, P.bc, H8, W8);
-  __syncthreads();
-
-  // 4. + the f1 1x1 branch (BN folded), ReLU
   const float* f1n = f1 + (size_t)n * H8 * W8 * 64;
-  for (int t = threadIdx.x; t < HS * HS * 128; t += blockDim.x) {
-    const int ch = t % 128, p = t / 128;
-    const int r = F8.r.row(p), c = F8.r.col(p);
-    if (!inside(r, c, H8, W8)) continue;
-    const float* x = f1n + ((size_t)r * W8 + c) * 64;
-    float v = F8.p[p * 129 + ch] + __ldg(P.bh + ch);
-#pragma unroll 8
-    for (int k = 0; k < 64; ++k) v += __ldg(x + k) * __ldg(P.kh + k * 128 + ch);
-    F8.p[p * 129 + ch] = fmaxf(v, 0.f);
+  for (int i = threadIdx.x; i < M * 16; i += blockDim.x) {
+    const int p = i / 16, k = i % 16 * 4;
+    const int r = R0 - 1 + p / RW, c = C0 - 1 + p % RW;
+    float* d = F1 + p * F1S + k;
+    if (inside(r, c, H8, W8))
+      cp_async16(d, f1n + ((size_t)r * W8 + c) * 64 + k);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  cp_async_floats(ring, pack, CHUNK_F);
+  cp_async_commit();
+  cp_async_floats(ring + CHUNK_F, pack + CHUNK_F, CHUNK_F);
+  cp_async_commit();
+
+  // 2. the GEMM: this warp's rows (rect positions, the last repeated
+  //    past M) and 64 channels from n0, over the record's chunks. An A
+  //    value of a dilated tap is the 2x upsample of fused16 at the tap's
+  //    1/8-res position (r, c), blended as it is read: row 2i -> .25
+  //    y[i-1] + .75 y[i], row 2i+1 -> .75 y[i] + .25 y[i+1], the same on
+  //    columns, with the edge clamp of fused16's staged reads; zero
+  //    outside the grid (the dilated conv's SAME padding).
+  const int n0 = warp % NG * 8 * NT;
+  const int p0 = warp / NG * 16 * MT;
+  int pi[MT][2], pj[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = min(p0 + 16 * m + g + 8 * h, M - 1);
+      pi[m][h] = p / RW, pj[m][h] = p % RW;
+    }
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  for (int ch = 0; ch < NCHUNKS; ++ch) {
+    cp_async_wait_group_sync<STAGES - 2>();  // chunk ch is in; ch-1 done
+    if (ch + STAGES - 1 < NCHUNKS)
+      cp_async_floats(ring + (ch + STAGES - 1) % STAGES * CHUNK_F,
+                      pack + (size_t)(ch + STAGES - 1) * CHUNK_F, CHUNK_F);
+    cp_async_commit();
+    const float* w = ring + ch % STAGES * CHUNK_F;
+    const int tap = ch / TAP_CHUNKS, kb = ch % TAP_CHUNKS * KC;
+    // each row's source for this chunk: fused16 at the top-left of its
+    // four taps and their weights, or its f1 row (weight 1)
+    const float* src[MT][2];
+    float wt[MT][2][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tap == 9) {
+          src[m][h] = F1 + (pi[m][h] * RW + pj[m][h]) * F1S + kb;
+          continue;
+        }
+        const int r = R0 - 3 + pi[m][h] + 2 * (tap / 3);
+        const int c = C0 - 3 + pj[m][h] + 2 * (tap % 3);
+        const int i = (r >> 1) - 1 + (r & 1), j = (c >> 1) - 1 + (c & 1);
+        const float in = inside(r, c, H8, W8) ? 1.f : 0.f;
+        const float wr = (r & 1) ? 0.75f : 0.25f;
+        const float wc = (c & 1) ? 0.75f : 0.25f;
+        wt[m][h][0] = in * wr * wc, wt[m][h][1] = in * wr * (1.f - wc);
+        wt[m][h][2] = in * (1.f - wr) * wc;
+        wt[m][h][3] = in * (1.f - wr) * (1.f - wc);
+        src[m][h] = Y + ((i - yr0) * YW + (j - yc0)) * AS + kb;
+      }
+    const auto aval = [&](int m, int h, int k) {
+      const float* s = src[m][h] + k;
+      if (tap == 9) return s[0];
+      return wt[m][h][0] * s[0] + wt[m][h][1] * s[AS] +
+             wt[m][h][2] * s[YW * AS] + wt[m][h][3] * s[YW * AS + AS];
+    };
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 8) {
+      float a[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        a[m][0] = aval(m, 0, ks + q), a[m][1] = aval(m, 1, ks + q);
+        a[m][2] = aval(m, 0, ks + q + 4), a[m][3] = aval(m, 1, ks + q + 4);
+      }
+      mma_kstep_rows<MT, NT, PASSES>(acc, a, w + ks * WS, WS, n0);
+    }
+  }
+  cp_async_wait_group_sync<0>();  // every warp is done with the buffers
+
+  // 3. + (bc + bh), ReLU: fused8 over the rect, in place of the buffers
+  //    (or, for the GEMM alone, the tile's positions to out)
+  const float* bias = pack + KMAIN * WS;
+  float* const F8 = smem;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + 16 * m + g + 8 * h;
+      if (p >= M) continue;
+      const int r = R0 - 1 + p / RW, c = C0 - 1 + p % RW;
+      const bool own = r >= R0 && r < R0 + TR && c >= C0 && c < C0 + TC &&
+                       r < H8 && c < W8;
+      if (kOut == OUT_FUSED8 && !own) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int ch = n0 + 8 * j + 2 * q;
+        const float2 v = make_float2(fmaxf(acc[m][j][2 * h] + bias[ch], 0.f),
+                                     fmaxf(acc[m][j][2 * h + 1] + bias[ch + 1],
+                                           0.f));
+        if (kOut == OUT_FUSED8)
+          *reinterpret_cast<float2*>(
+              out + (((size_t)n * H8 + r) * W8 + c) * 128 + ch) = v;
+        else
+          *reinterpret_cast<float2*>(F8 + p * AS + ch) = v;
+      }
+    }
+  if constexpr (kOut == OUT_FUSED8) return;
   __syncthreads();
 
-  // 5. the classifier over the head's rectangle (clamped), then the head
-  float* const CL = LUp;
-  classify(F8, CL, P.wcls, P.bcls, C, R0, C0, H8, W8);
+  // 4. the classifier over the rect, each out-of-grid position reading
+  //    its clamped neighbour's fused8, then the head
+  float* const CL = smem + F8_F;
+  const float* wcls = pack + KMAIN * WS + 128;
+  const float* bcls = wcls + 128 * cls_ws;
+  gemm<1, kClassifierPasses, 128>(
+      0, M, (C + 7) / 8 * 8, 1, wcls, cls_ws,
+      [&](int p, int) {
+        p = min(p, M - 1);
+        const int r = clampi(R0 - 1 + p / RW, 0, H8 - 1);
+        const int c = clampi(C0 - 1 + p % RW, 0, W8 - 1);
+        return F8 + ((r - R0 + 1) * RW + c - C0 + 1) * AS;
+      },
+      [&](int p, int cls, float v0, float v1) {
+        if (cls < C) CL[p * C + cls] = v0 + bcls[cls];
+        if (cls + 1 < C) CL[p * C + cls + 1] = v1 + bcls[cls + 1];
+      });
   __syncthreads();
-  head8_end<kPredict>(CL, LUp + LU_F - TAIL_F, C, n, R0, C0, H8, W8,
-                      partials, labels);
+  const float v =
+      head8<kOut == OUT_PREDICT, TR, TC>(CL, C, n, R0, C0, H8, W8, labels);
+  if constexpr (kOut == OUT_SCORE) store_partial(v, smem + SLOTS, out, n);
 }
+
+// mma passes of CFF2's products on each route (ops/kernels/icnet_head.py
+// PRECISION)
+constexpr int kPredictPasses = 3, kScorePasses = 1;
 
 }  // namespace
 }  // namespace ssal
@@ -329,25 +457,17 @@ int launch_head8(const float* f8, const float* wcls, const float* bcls,
   return (int)cudaGetLastError();
 }
 
-template <bool kPredict>
-int launch_cff2_head(const float* f16, const float* f1, const float* pack,
-                     float* partials, signed char* labels, int n, int h8,
-                     int w8, int num_classes, void* stream) {
-  Cursor cur{pack};
-  Cff2Params P;
-  P.kc = cur.take(9 * 128 * 128);
-  P.bc = cur.take(128);
-  P.kh = cur.take(64 * 128);
-  P.bh = cur.take(128);
-  P.wcls = cur.take(128 * num_classes);
-  P.bcls = cur.take(num_classes);
-  cudaFuncSetAttribute(cff2_head_kernel<kPredict>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)CFF2_SMEM_BYTES);
-  const dim3 grid((w8 + HT - 1) / HT, (h8 + HT - 1) / HT, n);
-  cff2_head_kernel<kPredict><<<grid, THREADS, CFF2_SMEM_BYTES,
-                               (cudaStream_t)stream>>>(
-      f16, f1, P, partials, labels, h8, w8, num_classes);
+template <int kOut, int PASSES>
+int launch_cff2(const float* f16, const float* f1, const float* pack,
+                float* out, signed char* labels, int n, int h8, int w8,
+                int num_classes, void* stream) {
+  const auto k = cff2_head_kernel<kOut, PASSES>;
+  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)CFF2_SMEM);
+  const dim3 grid((w8 + TC - 1) / TC, (h8 + TR - 1) / TR, n);
+  k<<<grid, CFF2_THREADS, CFF2_SMEM, (cudaStream_t)stream>>>(
+      f16, f1, pack, bstride((num_classes + 7) / 8 * 8), out, labels, h8, w8,
+      num_classes);
   return (int)cudaGetLastError();
 }
 
@@ -372,20 +492,28 @@ extern "C" int ssal_head8_predict(const float* f8, const float* wcls,
                             num_classes, stream);
 }
 
-// kc [3][3][128][128], bc [128], kh [64][128], bh [128], wcls [128][C],
-// bcls [C].
+// Two GEMM records (tc.cuh Layer): [kc (tap-major, 9 x 128 rows) ; kh
+// (64 rows)] [1216][136] with the vector bc + bh, then the classifier
+// [128][bstride(Cp)] with bcls padded to Cp, Cp = C rounded up to 8s.
 extern "C" int ssal_cff2_head_pack_size(int num_classes) {
-  return 9 * 128 * 128 + 128 + 64 * 128 + 128 + 129 * num_classes;
+  const int cp = (num_classes + 7) / 8 * 8;
+  return KMAIN * WS + 128 + 128 * bstride(cp) + cp;
+}
+
+// Score partials of the CFF2 + head kernel per image.
+extern "C" int ssal_cff2_head_partials(int h8, int w8) {
+  return ((h8 + TR - 1) / TR) * ((w8 + TC - 1) / TC);
 }
 
 // fused16 [N,H8/2,W8/2,128], f1 [N,H8,W8,64] -> partials [N,
-// ssal_head8_partials(h8, w8)]; H8, W8 even, C <= 128.
+// ssal_cff2_head_partials(h8, w8)]; H8, W8 even, C <= 128.
 extern "C" int ssal_cff2_head_score(const float* f16, const float* f1,
                                     const float* pack, float* partials, int n,
                                     int h8, int w8, int num_classes,
                                     void* stream) {
-  return launch_cff2_head<false>(f16, f1, pack, partials, nullptr, n, h8, w8,
-                                 num_classes, stream);
+  return launch_cff2<OUT_SCORE, kScorePasses>(f16, f1, pack, partials,
+                                              nullptr, n, h8, w8,
+                                              num_classes, stream);
 }
 
 // The same inputs -> labels int8 [N, 8*H8, 8*W8]; C <= 127.
@@ -393,6 +521,21 @@ extern "C" int ssal_cff2_head_predict(const float* f16, const float* f1,
                                       const float* pack, signed char* labels,
                                       int n, int h8, int w8, int num_classes,
                                       void* stream) {
-  return launch_cff2_head<true>(f16, f1, pack, nullptr, labels, n, h8, w8,
-                                num_classes, stream);
+  return launch_cff2<OUT_PREDICT, kPredictPasses>(f16, f1, pack, nullptr,
+                                                  labels, n, h8, w8,
+                                                  num_classes, stream);
+}
+
+// The GEMM alone: the same inputs -> fused8 [N,H8,W8,128], at the score
+// route's precision (score != 0) or the predict route's.
+extern "C" int ssal_cff2_fused8(const float* f16, const float* f1,
+                                const float* pack, float* fused8, int n,
+                                int h8, int w8, int num_classes, int score,
+                                void* stream) {
+  return score ? launch_cff2<OUT_FUSED8, kScorePasses>(
+                     f16, f1, pack, fused8, nullptr, n, h8, w8, num_classes,
+                     stream)
+               : launch_cff2<OUT_FUSED8, kPredictPasses>(
+                     f16, f1, pack, fused8, nullptr, n, h8, w8, num_classes,
+                     stream);
 }

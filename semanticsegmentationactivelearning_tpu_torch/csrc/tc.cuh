@@ -1,9 +1,10 @@
-// Tensor-core pieces of the ENet front, mid and tail kernels (front.cu,
-// mid.cu, tail.cu): the warp-level TF32 product mma.sync.m16n8k8 with
-// fp32 accumulation, taken once (TF32) or three times over the hi/lo
-// split of both operands (3xTF32, about fp32's accuracy), cp.async
-// copies into shared memory, the GEMM record of a layer's weights, the
-// warp GEMM over records and an expand's 16-byte epilogue.
+// Tensor-core pieces of the ENet front, mid and tail kernels and ICNet's
+// CFF2 + head kernel (front.cu, mid.cu, tail.cu, icnet_head.cu): the
+// warp-level TF32 product mma.sync.m16n8k8 with fp32 accumulation, taken
+// once (TF32) or three times over the hi/lo split of both operands
+// (3xTF32, about fp32's accuracy), cp.async copies into shared memory,
+// the GEMM record of a layer's weights, the warp GEMM over records and
+// an expand's 16-byte epilogue.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4,
 // q = lane % 4: A reg 0/1/2/3 = (row g, col q), (g+8, q), (g, q+4),
@@ -39,25 +40,28 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One k-step of a warp's 16 x 8NT tile: acc += A (16x8) @ B (8 x 8NT),
-// A given as this lane's four values (rows g, g+8 x cols q, q+4), B the
-// k-step's 8 rows of a shared-memory weight [k][ws] from column n0.
-// PASSES 1: TF32 products; 3: hi*hi + hi*lo + lo*hi (3xTF32).
-template <int NT, int PASSES>
-__device__ __forceinline__ void mma_kstep(float (&acc)[NT][4], float a0,
-                                          float a1, float a2, float a3,
-                                          const float* w, int ws, int n0) {
+// One k-step of a warp's 16MT x 8NT tile: acc[m] += A_m (16x8) @ B (8 x
+// 8NT) for MT row tiles m, A_m given as this lane's four values a[m]
+// (rows g, g+8 x cols q, q+4), B the k-step's 8 rows of a shared-memory
+// weight [k][ws] from column n0, each B fragment read (and split) once
+// for all row tiles. PASSES 1: TF32 products; 3: hi*hi + hi*lo + lo*hi
+// (3xTF32).
+template <int MT, int NT, int PASSES>
+__device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
+                                               const float (&a)[MT][4],
+                                               const float* w, int ws,
+                                               int n0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  uint32_t ah[4], al[4];
-  if (PASSES == 3) {
-    split_tf32(a0, ah[0], al[0]);
-    split_tf32(a1, ah[1], al[1]);
-    split_tf32(a2, ah[2], al[2]);
-    split_tf32(a3, ah[3], al[3]);
-  } else {
-    ah[0] = to_tf32(a0), ah[1] = to_tf32(a1);
-    ah[2] = to_tf32(a2), ah[3] = to_tf32(a3);
-  }
+  uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (PASSES == 3)
+        split_tf32(a[m][i], ah[m][i], al[m][i]);
+      else
+        ah[m][i] = to_tf32(a[m][i]);
+    }
   const float* w0 = w + q * ws + n0 + g;
   const float* w1 = w0 + 4 * ws;
 #pragma unroll
@@ -66,13 +70,28 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[NT][4], float a0,
       uint32_t bh0, bl0, bh1, bl1;
       split_tf32(w0[8 * j], bh0, bl0);
       split_tf32(w1[8 * j], bh1, bl1);
-      mma_tf32(acc[j], al, bh0, bh1);
-      mma_tf32(acc[j], ah, bl0, bl1);
-      mma_tf32(acc[j], ah, bh0, bh1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_tf32(acc[m][j], al[m], bh0, bh1);
+        mma_tf32(acc[m][j], ah[m], bl0, bl1);
+        mma_tf32(acc[m][j], ah[m], bh0, bh1);
+      }
     } else {
-      mma_tf32(acc[j], ah, to_tf32(w0[8 * j]), to_tf32(w1[8 * j]));
+      const uint32_t b0 = to_tf32(w0[8 * j]), b1 = to_tf32(w1[8 * j]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ah[m], b0, b1);
     }
   }
+}
+
+// mma_kstep_rows for one row tile, its A values a0..a3.
+template <int NT, int PASSES>
+__device__ __forceinline__ void mma_kstep(float (&acc)[NT][4], float a0,
+                                          float a1, float a2, float a3,
+                                          const float* w, int ws, int n0) {
+  const float a[1][4] = {{a0, a1, a2, a3}};
+  mma_kstep_rows<1, NT, PASSES>(
+      *reinterpret_cast<float(*)[1][NT][4]>(&acc), a, w, ws, n0);
 }
 
 // Copy n floats (n % 4 == 0, both pointers 16-byte aligned) from global

@@ -60,8 +60,10 @@ SIGNATURES = {
     "ssal_head8_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_head8_predict": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_cff2_head_pack_size": ([_I], _I),
+    "ssal_cff2_head_partials": ([_I, _I], _I),
     "ssal_cff2_head_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_cff2_head_predict": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "ssal_cff2_fused8": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssal_probe_launch_max_consts": ([], _I),
     "ssal_probe_launch": ([_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                            _P], _I),

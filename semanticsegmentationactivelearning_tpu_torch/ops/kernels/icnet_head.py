@@ -12,7 +12,12 @@ head device function. Same contracts: ``fused8 [N, H8, W8, 128]``,
 its first-maximum class; and ``fused16 [N, H8/2, W8/2, 128]`` (CFF1's
 output) with ``f1 [N, H8, W8, 64]`` -> the same of ``CFF2(fused16,
 f1)``. Full-resolution (and 1/4-res) logits never reach memory on the
-kernel path.
+kernel path, nor does fused8 on the CFF2 + head path.
+
+The CFF2 + head kernel runs CFF2 and the classifier on the tensor cores
+at the precision of its route (:data:`PRECISION`), from two GEMM records
+(:func:`pack_cff2_head`); the head kernel's classifier and both heads'
+upsample and entropy or argmax are fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -27,6 +32,16 @@ from . import build, packing
 
 MAX_CLASSES = 128  # the kernels' shared-memory logits buffer
 MAX_PREDICT_CLASSES = 127  # labels are int8
+# The tensor-core precision of CFF2's products on the CFF2 + head
+# kernel's routes (csrc/icnet_head.cu kPredictPasses, kScorePasses), as
+# the ENet kernels': 3xTF32 (hi/lo split of both operands) for labels,
+# one TF32 pass for scores; each is held one precision below by
+# chip_smoke.py's PRECISION_GATE on fused8. The classifier's products
+# are 3xTF32 on both routes: one pass shifts every logit alike and took
+# the error of a score from 5.9e-5 to 9.8e-5 of the 1e-4 tolerance,
+# measured on the H100 by tools/probe_cff2.py (PERF.md).
+PRECISION = {"predict": "3xTF32", "score": "TF32"}
+KMAIN = 9 * 128 + 64  # the CFF2 record's k rows: the dilated taps, f1
 
 
 def pack_classifier(model) -> List[torch.Tensor]:
@@ -36,15 +51,22 @@ def pack_classifier(model) -> List[torch.Tensor]:
 
 
 def pack_cff2_head(model) -> torch.Tensor:
-    """Fold BN into CFF2's low (dilated 3x3) and high (1x1) convs and
-    append the classifier (layout of ``csrc/icnet_head.cu``
-    ``ssal_cff2_head_score``)."""
+    """CFF2 + the classifier as two GEMM records (``csrc/icnet_head.cu``
+    ``ssal_cff2_head_pack_size``): BN folded into the low (dilated 3x3)
+    and high (1x1) convs, their weights stacked as ``[kc (9 taps x 128,
+    tap-major) ; kh (64)]`` ``[1216, 128]`` with the one bias ``bc +
+    bh``, since the two are summed before the ReLU; then ``wcls [128,
+    C]`` with ``bcls``, C padded to 8s."""
     cff2 = model.CFF2
-    parts = (packing.affine(packing.hwio(cff2.low.conv), cff2.low.bn)
-             + packing.affine(packing.hwio(cff2.high.conv)[0, 0],
-                              cff2.high.bn)
-             + pack_classifier(model))
-    return packing.flat(parts)
+    kc, bc = packing.affine(packing.hwio(cff2.low.conv), cff2.low.bn)
+    kh, bh = packing.affine(packing.hwio(cff2.high.conv)[0, 0],
+                            cff2.high.bn)
+    wcls, bcls = pack_classifier(model)
+    c = wcls.shape[1]
+    w = torch.cat([kc.reshape(9 * 128, 128), kh])
+    return packing.flat(
+        packing.gemm_record(w[None], KMAIN, 128, [bc + bh])
+        + packing.gemm_record(wcls[None], 128, -(-c // 8) * 8, [bcls]))
 
 
 def _check_classes(c: int, predict: bool = False) -> None:
@@ -177,22 +199,50 @@ def _cff2_checked(fused16, f1, model, predict):
     return pack, (n, 2 * h16, 2 * w16, c)
 
 
+def launch_cff2(kind: str, fused16: torch.Tensor, f1: torch.Tensor,
+                model) -> torch.Tensor:
+    """One launch of the CFF2 + head kernel on CUDA tensors, uncounted
+    (the wrappers below count theirs): ``kind`` "score" (the per-block
+    partial sums ``[N, blocks]``), "predict" (labels) or "fused8_score"
+    / "fused8_predict" (the GEMM alone at that route's precision, for
+    the precision gate and ``tools/probe_cff2.py``'s split: fused8
+    ``[N, H8, W8, 128]``)."""
+    pack, (n, h8, w8, c) = _cff2_checked(fused16, f1, model,
+                                         kind == "predict")
+    lib = build.library()
+    dev = fused16.device
+    args = (build.ptr(fused16), build.ptr(f1), build.ptr(pack))
+    tail = (n, h8, w8, c)
+    with torch.cuda.device(dev):
+        stream = build.stream_of(fused16)
+        if kind == "score":
+            out = torch.empty((n, lib.ssal_cff2_head_partials(h8, w8)),
+                              device=dev)
+            status = lib.ssal_cff2_head_score(*args, build.ptr(out), *tail,
+                                              stream)
+        elif kind == "predict":
+            out = torch.empty((n, 8 * h8, 8 * w8), dtype=torch.int8,
+                              device=dev)
+            status = lib.ssal_cff2_head_predict(*args, build.ptr(out), *tail,
+                                                stream)
+        else:
+            out = torch.empty((n, h8, w8, 128), device=dev)
+            status = lib.ssal_cff2_fused8(*args, build.ptr(out), *tail,
+                                          int(kind == "fused8_score"),
+                                          stream)
+        build.check(status, f"cff2 head {kind} kernel")
+    return out
+
+
 @torch.no_grad()
 def fused_cff2_head8_predict(fused16: torch.Tensor, f1: torch.Tensor,
                              model) -> torch.Tensor:
     """Labels int8 ``[N, 8*H8, 8*W8]`` of CFF2 + the head: the CUDA
-    kernel on CUDA tensors (fused8 stays on chip), the plain version on
-    CPU tensors."""
+    kernel on CUDA tensors (3xTF32 products, fused8 stays on chip), the
+    plain version on CPU tensors."""
     if fused16.device.type == "cpu":
         return cff2_head8_predict_plain(fused16, f1, model)
-    pack, (n, h8, w8, c) = _cff2_checked(fused16, f1, model, True)
-    labels = torch.empty((n, 8 * h8, 8 * w8), dtype=torch.int8,
-                         device=fused16.device)
-    with torch.cuda.device(fused16.device):
-        build.check(build.library().ssal_cff2_head_predict(
-            build.ptr(fused16), build.ptr(f1), build.ptr(pack),
-            build.ptr(labels), n, h8, w8, c, build.stream_of(fused16)),
-            "cff2 head predict kernel")
+    labels = launch_cff2("predict", fused16, f1, model)
     fused_cff2_head8_predict.launches += 1
     return labels
 
@@ -204,22 +254,14 @@ fused_cff2_head8_predict.launches = 0
 def fused_cff2_head8_entropy_score(fused16: torch.Tensor, f1: torch.Tensor,
                                    model) -> torch.Tensor:
     """Per-image mean entropy confidence float32 ``[N]`` of CFF2 + the
-    head: the CUDA kernel on CUDA tensors (fused8 stays on chip), the
-    plain version on CPU tensors."""
+    head: the CUDA kernel on CUDA tensors (one TF32 pass, fused8 stays
+    on chip), the plain version on CPU tensors."""
     if fused16.device.type == "cpu":
         return cff2_head8_entropy_score_plain(fused16, f1, model)
-    pack, (n, h8, w8, c) = _cff2_checked(fused16, f1, model, False)
-    lib = build.library()
-    partials = torch.empty((n, lib.ssal_head8_partials(h8, w8)),
-                           device=fused16.device)
-    with torch.cuda.device(fused16.device):
-        build.check(lib.ssal_cff2_head_score(build.ptr(fused16), build.ptr(f1),
-                                             build.ptr(pack),
-                                             build.ptr(partials), n, h8, w8,
-                                             c, build.stream_of(fused16)),
-                    "cff2 head score kernel")
+    partials = launch_cff2("score", fused16, f1, model)
     fused_cff2_head8_entropy_score.launches += 1
-    return partials.sum(dim=1) / float(64 * h8 * w8)
+    _, h16, w16, _ = fused16.shape
+    return partials.sum(dim=1) / float(64 * 4 * h16 * w16)
 
 
 fused_cff2_head8_entropy_score.launches = 0

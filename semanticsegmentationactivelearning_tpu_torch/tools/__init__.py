@@ -12,4 +12,8 @@ device:
 - ``probe_front_packing``: wide ``[R,128]x[128,128]`` chains against
   narrow ``[8R,128]x[128,16]`` ones at equal useful work
   (``tools/probe_front_packing.py``).
+
+Beside them: the probes of the redesigned kernels (``probe_front``,
+``probe_mid``, ``probe_tail``, ``probe_cff2``), and ``cpu_emu``, which
+runs ``csrc/`` kernels on the CPU before their first run on a card.
 """

@@ -1,0 +1,201 @@
+"""Hand-written CUDA kernels of ``csrc/`` run on the CPU, to check a
+kernel's index math and fragment layouts before its first run on a
+card.
+
+    python -m semanticsegmentationactivelearning_tpu_torch.tools.cpu_emu \\
+        H8 W8 [--n 1] [--immediate] [--seed 0]
+
+:func:`build` copies ``csrc/`` into ``build/cpu_emu/``, rewrites what
+only nvcc compiles for the stand-in runtime of
+``emu_include/cuda_runtime.h`` (each ``extern __shared__`` array, each
+``<<<...>>>`` launch, and ``tc.cuh``'s inline PTX: ``cvt.rna.tf32``,
+``mma.sync`` m16n8k8 from its fragment layouts, ``cp.async``) and
+compiles the sources given with g++ into one shared library with the
+same C entries. Every thread of a block is a fiber on one OS thread;
+``__syncthreads``, ``mma.sync``'s warp exchange and ``__shfl_xor_sync``
+are barriers. A ``cp.async`` copy lands at the ``wait_group`` that
+needs it (the latest the hardware may land it), or at once with
+``--immediate`` (the earliest). Races that no barrier orders stay
+invisible. The stand-in defines no CUDA vector type but ``float2`` and
+``float4``, so ``front.cu`` and ``mid.cu`` do not build there.
+
+:func:`main` runs ICNet's CFF2 + head kernel (both routes, and its GEMM
+alone at both precisions) and the head kernel on seeded inputs of
+``[N, H8, W8]`` eighth-res positions and prints each against its plain
+version: fused8's max |error|, the scores' and the decided labels that
+differ (top-2 logit margin > 1e-3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..ops.kernels import build as kbuild
+
+INCLUDE = Path(__file__).resolve().parent / "emu_include"
+OUT = kbuild.PACKAGE.parent / "build" / "cpu_emu"
+
+# tc.cuh's functions that hold inline PTX -> their stand-in bodies
+TC_BODIES = {
+    "uint32_t to_tf32":
+        "uint32_t b = __float_as_uint(x); return (b + 0x1000u) & ~0x1FFFu;",
+    "void mma_tf32": r"""
+  const int w = emu::fid() / 32, l = emu::fid() % 32;
+  float* x = &emu::xch[(size_t)w * 32 * 16];
+  for (int i = 0; i < 4; ++i) x[l * 16 + i] = __uint_as_float(a[i]);
+  x[l * 16 + 4] = __uint_as_float(b0);
+  x[l * 16 + 5] = __uint_as_float(b1);
+  emu::sync_warp();
+  const int g = l >> 2, q = l & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * q + (i & 1);
+    float s = 0.f;
+    for (int k = 0; k < 8; ++k)
+      s += x[(row % 8 * 4 + k % 4) * 16 + (row >= 8) + 2 * (k >= 4)] *
+           x[(col * 4 + k % 4) * 16 + 4 + (k >= 4)];
+    c[i] += s;
+  }
+  emu::sync_warp();""",
+    "void cp_async_floats":
+        "for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) "
+        "emu::cp16(dst + i, src + i);",
+    "void cp_async16": "emu::cp16(dst, src);",
+    "void cp_async_wait_sync": "emu::wait_all(); __syncthreads();",
+    "void cp_async_commit": "emu::commit();",
+    "void cp_async_wait_group_sync": "emu::wait_group(N); __syncthreads();",
+}
+
+
+def _replace_body(src: str, head: str, body: str) -> str:
+    """``src`` with the body of the function whose declaration starts
+    with ``head(`` replaced by ``body``."""
+    i = src.index(head + "(")
+    j = src.index("{", i)
+    depth, k = 0, j
+    while True:
+        depth += {"{": 1, "}": -1}.get(src[k], 0)
+        if depth == 0:
+            break
+        k += 1
+    return src[:j] + "{\n" + body + "\n}" + src[k + 1:]
+
+
+def _launch(m) -> str:
+    """A ``k<<<grid, block, smem, stream>>>(args);`` launch as a call of
+    the stand-in's ``emu::launch`` (the stream dropped)."""
+    config = ", ".join(a.strip() for a in m.group(2).split(",")[:3])
+    return f"emu::launch({config}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+
+
+def build(names=("icnet_head",)) -> Path:
+    """The stand-in library of the ``csrc/`` sources ``names``."""
+    src = OUT / "src"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(kbuild.CSRC, src)
+    tc = (src / "tc.cuh").read_text()
+    for head, body in TC_BODIES.items():
+        tc = _replace_body(tc, head, body)
+    (src / "tc.cuh").write_text(tc)
+    for cu in src.glob("*.cu"):
+        text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float smem\[\];",
+                      "float* smem = emu::smem();", cu.read_text())
+        text = re.sub(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
+                      _launch, text, flags=re.S)
+        cu.write_text(text)
+    lib = OUT / "libssal_emu.so"
+    res = subprocess.run(
+        ["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-x", "c++", "-I",
+         str(INCLUDE), "-o", str(lib)] + [str(src / f"{n}.cu") for n in names],
+        capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed:\n{res.stderr[-6000:]}")
+    return lib
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """The library with the C entries' signatures (build.SIGNATURES)."""
+    lib = ctypes.CDLL(str(path))
+    for name, (args, res) in kbuild.SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = res
+    return lib
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("h8", type=int)
+    ap.add_argument("w8", type=int)
+    ap.add_argument("--n", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--immediate", action="store_true",
+                    help="cp.async copies land at once")
+    args = ap.parse_args(argv)
+    if args.immediate:
+        os.environ["EMU_IMMEDIATE"] = "1"
+    sys.path.insert(0, str(kbuild.PACKAGE.parent))
+    from chip_smoke import decided_labels, seeded_state_dict
+    from ..models import ICNet
+    from ..ops import nn as xops
+    from ..ops.kernels import icnet_head
+
+    lib = load(build())
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    n, h8, w8, c = args.n, args.h8, args.w8, 19
+    model = ICNet(c)
+    model.load_state_dict(seeded_state_dict(model, 1, 5.0, "ICNet"))
+    model.eval()
+    rng = np.random.default_rng(args.seed)
+    f16 = torch.from_numpy((0.5 * rng.normal(
+        size=(n, h8 // 2, w8 // 2, 128))).astype(np.float32))
+    f1 = torch.from_numpy((0.5 * np.maximum(rng.normal(
+        size=(n, h8, w8, 64)), 0)).astype(np.float32))
+    pack = icnet_head.pack_cff2_head(model)
+    wcls, bcls = (t.contiguous() for t in icnet_head.pack_classifier(model))
+    with torch.no_grad():
+        f8 = model.CFF2(f16, f1)[0]
+        want = icnet_head.cff2_head8_entropy_score_plain(f16, f1, model)
+        labels, decided = decided_labels(xops.resize_bilinear(
+            model.head_pre_logits(f8), (8 * h8, 8 * w8)), 1e-3)
+    print(f"fused8 max {f8.abs().max():.3f}, {decided.float().mean():.4f} "
+          f"of pixels decided")
+    for score in (1, 0):
+        out = torch.full((n, h8, w8, 128), float("nan"))
+        t0 = time.time()
+        kbuild.check(lib.ssal_cff2_fused8(ptr(f16), ptr(f1), ptr(pack),
+                                          ptr(out), n, h8, w8, c, score,
+                                          None), "cff2 fused8")
+        print(f"cff2 GEMM alone ({'TF32' if score else '3xTF32'}): fused8 "
+              f"max|k-p| {(out - f8).abs().max():.3e} "
+              f"({time.time() - t0:.1f} s)")
+    for name, fn, args8 in (
+            ("cff2 + head", "ssal_cff2_head", (ptr(f16), ptr(f1),
+                                               ptr(pack))),
+            ("head8", "ssal_head8", (ptr(f8), ptr(wcls), ptr(bcls)))):
+        blocks = (lib.ssal_cff2_head_partials if fn == "ssal_cff2_head"
+                  else lib.ssal_head8_partials)(h8, w8)
+        parts = torch.full((n, blocks), float("nan"))
+        kbuild.check(getattr(lib, fn + "_score")(
+            *args8, ptr(parts), n, h8, w8, c, None), name)
+        got = parts.sum(1) / (64 * h8 * w8)
+        lab = torch.full((n, 8 * h8, 8 * w8), -1, dtype=torch.int8)
+        kbuild.check(getattr(lib, fn + "_predict")(
+            *args8, ptr(lab), n, h8, w8, c, None), name)
+        bad = int(((lab.long() != labels) & decided).sum())
+        print(f"{name}: scores max|k-p| {(got - want).abs().max():.3e}; "
+              f"{bad} decided labels differ, {int((lab == -1).sum())} unset")
+
+
+if __name__ == "__main__":
+    main()

@@ -595,6 +595,41 @@ def test_icnet_predict_kernels_match_plain_versions(icnet, shape):
             _labels_agree(labels, logits)
 
 
+# H8 x W8 = 12 x 20, 20 x 44 and 28 x 12: no multiple of either tile shape
+CFF2_SHAPES = [(1, 96, 160, 3), (2, 160, 352, 3), (1, 224, 96, 3)]
+
+
+@pytest.mark.parametrize("shape", CFF2_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cff2_tiles_match_plain_versions(icnet, shape):
+    """The CFF2 + head kernel's ragged tiles on both routes, against
+    the plain CFF2 + head: the GEMM alone (fused8 within 1e-3 of its
+    maximum in one TF32 pass, 1e-4 in 3xTF32), the scores within 1e-4
+    and bit-equal from run to run, the labels on decided pixels."""
+    image = _image(shape, 16)
+    n, h, w, _ = shape
+    with torch.no_grad():
+        f1, x_half = icnet_front.icnet_front_plain(image, icnet)
+        fused16 = icnet.fuse_to_cff1(icnet.SharedStem.front(x_half))
+        fused8 = icnet.CFF2(fused16, f1)[0]
+        top = fused8.abs().max().item()
+        for route, tol in (("score", 1e-3), ("predict", 1e-4)):
+            f8 = icnet_head.launch_cff2(f"fused8_{route}", fused16, f1,
+                                        icnet)
+            assert (f8 - fused8).abs().max().item() <= tol * top
+        run = lambda: icnet_head.launch_cff2("score", fused16, f1,
+                                             icnet).sum(1) / (h * w)
+        got = run()
+        want = icnet_head.cff2_head8_entropy_score_plain(fused16, f1, icnet)
+        assert got.shape == (n,) and ((0.05 < got) & (got < 0.95)).all()
+        assert (got - want).abs().max().item() <= 1e-4
+        assert torch.equal(got, run())
+        labels = icnet_head.launch_cff2("predict", fused16, f1, icnet)
+        logits = xops.resize_bilinear(icnet.head_pre_logits(fused8), (h, w))
+        assert labels.dtype == torch.int8 and labels.shape == (n, h, w)
+        _labels_agree(labels, logits)
+
+
 ICNET_PREDICT_ROUTES = [
     ("default", {}, ("front_stem", "cff2_head")),
     ("no_cff2", dict(fuse_cff2=False), ("front_stem", "head8")),

@@ -203,8 +203,10 @@ def test_packs_hold_the_kernels_weights(setup):
     conv = lambda cin, cout: 9 * cin * cout + cout
     assert icnet_front.pack_icnet_front(tm).numel() == 2 * (
         conv(3, 32) + conv(32, 32) + conv(32, 64))
+    # CFF2 + head: two GEMM records, [kc ; kh] [1216, 136] with bc + bh,
+    # the classifier [128, 8] with bcls, C = 5 padded to 8
     assert icnet_head.pack_cff2_head(tm).numel() == (
-        9 * 128 * 128 + 128 + 64 * 128 + 128 + 129 * C)
+        1216 * 136 + 128 + 128 * 8 + 8)
     model = ICNet(C)
     model.load_state_dict(tm.state_dict())
     first = model.packed("cff2_head", "cpu", icnet_head.pack_cff2_head)
