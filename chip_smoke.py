@@ -9,8 +9,9 @@ Phases (any failure raises, so the exit code is not 0):
   2. build: nvcc compiles the kernels of
      semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a, one
      process per source; prints ptxas's registers and spills and the
-     HMMA (tensor-core) instruction count of each front, mid, tail and
-     CFF2 + head kernel's SASS (each CFF2 + head instance must have some).
+     HMMA (tensor-core) instruction count of each front, mid, tail, ICNet
+     front and CFF2 + head kernel's SASS (each ICNet front and CFF2 + head
+     instance must have some, and no ICNet front instance may spill).
   3. kernels: the serving kernels (front, mid, tail predict) against
      their plain PyTorch versions on the same inputs at ENet-19, batch 2,
      1024x2048, with seeded weights (glorot-uniform convs, noised BN
@@ -57,23 +58,28 @@ Phases (any failure raises, so the exit code is not 0):
      1024x2048, conf/icnet_cityscapes.json), with seeded weights:
      a. the four ICNet kernels (front, front+stem, CFF2 + head, head)
         against their plain versions on the same inputs: f1 and stem1 to
-        1e-3 of their maximum, x_half to 1e-5, scores to 1e-4 per image
+        1e-3 of their maximum and under PRECISION_GATE (the fronts on
+        their score route, all six convs rounded), f1 bit-equal between
+        the two fronts, x_half to 1e-5, scores to 1e-4 per image
         and bit-equal from run to run, with the classifier x5, x1, x25
-        and x1000; each one's time beside its plain version's; the CFF2
+        and x1000; each one's time beside its plain version's; the front
+        + stem's launches timed alone and its TFLOP/s of least work; the CFF2
         + head kernel's split (the GEMM alone, its fused8 to 1e-3 of the
         plain maximum and under PRECISION_GATE, and the head end) and its
         TFLOP/s of least work, its bound at its route's precision, and
         its scores under PRECISION_GATE with CFF2's products rounded;
      b. the pool: 6 uint8 batches through device_prefetch, /255 and
         make_score_step(icnet, 19, "entropy"), with the counters zeroed
-        before (front+stem and CFF2 + head once a batch); the scores
+        before (front+stem's launches and CFF2 + head once a batch); the scores
         against the plain chain's; then one batch each through the
         fuse_cff2=False and fuse_stem=False routes;
      c. the phase-6 breakdown of ICNet's scoring chain, kernel and
         plain.
   8. ICNet serving, at ENet serving's shape (ICNet-19, batch 2,
      1024x2048, fp32), with seeded weights:
-     a. the two predict kernels (CFF2 + head, head) against their plain
+     a. the two fronts on their predict route, checked and timed as in
+        7a (the precision gate one below 3xTF32); the two predict kernels
+        (CFF2 + head, head) against their plain
         versions on the same inputs (the plain chain's fused16 and
         fused8), with the classifier x5 and x25: no label may differ
         where the plain logits' top-2 margin exceeds 1e-3, and at least
@@ -82,8 +88,8 @@ Phases (any failure raises, so the exit code is not 0):
         (fused8 in 3xTF32) and the decided labels that its plain version
         in TF32 moves;
      b. serving: 10 uint8 batches through device_prefetch and
-        make_predict_fn, with the counters zeroed before (front+stem and
-        CFF2 + head predict once a batch); the maps against the plain
+        make_predict_fn, with the counters zeroed before (front+stem's
+        launches and CFF2 + head predict once a batch); the maps against the plain
         forward's on decided pixels (at most 1e-4 of them may differ);
         the kernel chain's time beside the plain chain's; then one batch
         each through the fuse_cff2=False and fuse_stem=False routes of
@@ -166,7 +172,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "decoder_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:687"),
     "deconv_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:344"),
     "icnet_front_stem": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3346"),
+    "icnet_front_stem_predict": (f"{_CSRC}/icnet_front.cu",
+                                 f"{_PALLAS}:3346"),
     "icnet_front": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3189"),
+    "icnet_front_predict": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3189"),
     "icnet_cff2_head_score": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:3604"),
     "icnet_head8_score": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:198"),
     "icnet_cff2_head_predict": (f"{_CSRC}/icnet_head.cu", f"{_PALLAS}:3677"),
@@ -177,6 +186,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                      "tools/probe_mosaic_floor.py:103 and "
                      "tools/probe_front_packing.py:134"),
 }
+# the ICNet front's kernels (csrc/icnet_front.cu): phase 2 fails on an
+# instance with no HMMA or with spills
+ICNET_FRONT = ("branch1_kernel", "stem12_kernel", "stem3_kernel")
 # phase 8a's classifiers: x5 already decides >99.9% of pixels at the
 # 1e-3 margin (measured on the CPU at 256x512); x25 is ENet's Final scale
 ICNET_PREDICT_SCALES = (ICNET_CLS_SCALE, 25.0)
@@ -248,6 +260,20 @@ def hmma_counts(lib_path) -> dict:
         elif fn is not None and "HMMA" in ln:
             counts[fn] += 1
     return counts
+
+
+def ptxas_spills(log: str) -> dict:
+    """Bytes of spill stores and loads of each kernel in ptxas's ``-v``
+    output (``build.Build.log``)."""
+    spills, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn is not None and "spill stores" in ln:
+            words = ln.replace(",", " ").split()
+            spills[fn] = sum(int(words[i - 2]) for i, w in enumerate(words)
+                             if w == "spill")
+    return spills
 
 
 def cuda_ms(fn) -> float:
@@ -1018,14 +1044,19 @@ def icnet_head_flops(n: int, h8: int, w8: int, c: int) -> float:
 
 
 def peak(name: str) -> float:
-    """The peak rate of an ICNet kernel: the CFF2 + head kernel's on the
-    tensor cores at its route's precision (icnet_head.PRECISION), the
-    others' fp32."""
+    """The peak rate of an ICNet kernel (a KERNELS name) on its route
+    (predict where the name ends in "_predict", else score): the fronts'
+    and the CFF2 + head kernel's on the tensor cores at the route's
+    precision (icnet_front.PRECISION, icnet_head.PRECISION), the head
+    kernel's fp32."""
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
-        icnet_head)
-    if not name.startswith("icnet_cff2_head"):
-        return PEAK_FLOPS
-    return TC_PEAK[icnet_head.PRECISION[name.rsplit("_", 1)[1]]]
+        icnet_front, icnet_head)
+    route = "predict" if name.endswith("_predict") else "score"
+    for prefix, module in (("icnet_front", icnet_front),
+                           ("icnet_cff2_head", icnet_head)):
+        if name.startswith(prefix):
+            return TC_PEAK[module.PRECISION[route]]
+    return PEAK_FLOPS
 
 
 def cff2_split(model, fused16, f1, fused8, r: dict, score: bool) -> dict:
@@ -1064,6 +1095,90 @@ def cff2_split(model, fused16, f1, fused8, r: dict, score: bool) -> dict:
     return out
 
 
+def check_icnet_fronts(model, image, score: bool) -> dict:
+    """Both ICNet front entries on one route against their plain
+    versions on ``image``: f1 and stem1 to 1e-3 of their maxima and
+    under PRECISION_GATE (all six convs rounded), x_half to 1e-5, f1
+    bit-equal between the entries; each one's time, the plain version's,
+    its bound at the route's peak and TFLOP/s of least work, and the
+    front + stem's launches timed alone. Returns {"icnet_front_stem",
+    "icnet_front"} with "_predict" after the names on the predict
+    route."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_front)
+    route = "score" if score else "predict"
+    precision = icnet_front.PRECISION[route]
+    suffix = "" if score else "_predict"
+    n, h, w, _ = image.shape
+    res = {}
+    with torch.no_grad():
+        f1, x_half = icnet_front.icnet_front_plain(image, model)
+        stem1 = model.SharedStem.front(x_half)
+        want = dict(f1=f1, x_half=x_half, stem1=stem1)
+        # what the kernels read besides the image: the pack, not the model
+        pack = model.packed("icnet_front", image.device,
+                            icnet_front.pack_icnet_front)
+        # the downsample: 16 taps x 3 channels a half-res pixel
+        down = 32.0 * 3 * n * (h // 2) * (w // 2)
+        fronts = (
+            ("icnet_front_stem", icnet_front.fused_icnet_front_stem,
+             icnet_front.icnet_front_stem_plain, ("f1", "stem1")),
+            ("icnet_front", icnet_front.fused_icnet_front,
+             icnet_front.icnet_front_plain, ("f1", "x_half")))
+        errs, f1s = {}, []
+        for name, fused, plain, names in fronts:
+            got = fused(image, model, score=score)
+            f1s.append(got[0])
+            worst = 0.0
+            for g, what in zip(got, names):
+                err = (g - want[what]).abs().max().item()
+                bound = (1e-5 if what == "x_half"
+                         else 1e-3 * want[what].abs().max().item())
+                print(f"{name} ({route}): {what} max|k-p| {err:.3e} (bound "
+                      f"{bound:.3e})")
+                if not err <= bound:
+                    raise AssertionError(f"{name} {what} ({route}): {err} > "
+                                         f"{bound}")
+                errs[what] = max(errs.get(what, 0.0), err)
+                worst = max(worst, err)
+            flops = count_flops(plain, (image, model)) + down
+            r = res[name + suffix] = dict(
+                max_abs_err=worst,
+                ms=cuda_ms(lambda: fused(image, model, score=score)),
+                plain_ms=cuda_ms(lambda: plain(image, model)),
+                **roofline((image, pack), got, flops, peak(name + suffix)))
+            r["tflops"] = flops / r["ms"] / 1e9
+            del got
+        if not torch.equal(f1s[0], f1s[1]):
+            raise AssertionError("the two ICNet front entries' f1 differ")
+        del f1s
+        for what in ("f1", "stem1"):
+            precision_gate(
+                f"icnet front {what}, {route}", precision, errs[what], model,
+                lambda m: icnet_front.icnet_front_stem_plain(image, m)[
+                    what == "stem1"], want[what], icnet_front.TC_CONVS)
+        # each launch of the front + stem alone, on its input
+        split, x = {}, image
+        for part in ("branch1",) + icnet_front.STEM_PARTS:
+            src = image if part == "branch1" else x
+            split[part] = cuda_ms(lambda: icnet_front.launch_part(
+                part, src, model, score, (h, w)))
+            if part != "branch1":
+                (x,) = icnet_front.launch_part(part, x, model, score, (h, w))
+        del x
+    r = res["icnet_front_stem" + suffix]
+    r["split"] = split
+    print(f"icnet front + stem {route} split (batch {n}, {h}x{w}, "
+          f"{precision}, {icnet_front.LAUNCHES_PER_CALL} launches): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f"; the front + stem {r['ms']:.3f} ms = {r['tflops']:.1f} TFLOP/s"
+          f" of least work ({r['flops'] / 1e9:.2f} GFLOP), bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']}); the front "
+          f"{res['icnet_front' + suffix]['ms']:.3f} ms = "
+          f"{res['icnet_front' + suffix]['tflops']:.1f} TFLOP/s")
+    return res
+
+
 def check_icnet_kernels(seed: int) -> dict:
     """Phase 7a: each ICNet kernel against its plain version on the same
     inputs (the plain chain's activations of one seeded batch): the
@@ -1083,37 +1198,7 @@ def check_icnet_kernels(seed: int) -> dict:
             f1, x_half = icnet_front.icnet_front_plain(image, model)
             stem1 = model.SharedStem.front(x_half)
             if not res:  # the fronts do not read the classifier
-                # (name, kernel, plain version, its outputs' names and
-                # bounds: features to 1e-3 of their max, the resized
-                # image to 1e-5)
-                fronts = (
-                    ("icnet_front", icnet_front.fused_icnet_front,
-                     icnet_front.icnet_front_plain, (f1, x_half),
-                     (("f1", 1e-3 * f1.abs().max().item()),
-                      ("x_half", 1e-5))),
-                    ("icnet_front_stem", icnet_front.fused_icnet_front_stem,
-                     icnet_front.icnet_front_stem_plain, (f1, stem1),
-                     (("f1", 1e-3 * f1.abs().max().item()),
-                      ("stem1", 1e-3 * stem1.abs().max().item()))))
-                for name, fused, plain, want, bounds in fronts:
-                    got = fused(image, model)
-                    errs = []
-                    for g, w, (what, bound) in zip(got, want, bounds):
-                        err = (g - w).abs().max().item()
-                        print(f"{name}: {what} max|k-p| {err:.3e} (bound "
-                              f"{bound:.3e})")
-                        if not err <= bound:
-                            raise AssertionError(f"{name} {what}: {err} > "
-                                                 f"{bound}")
-                        errs.append(err)
-                    # the downsample: 16 taps x 3 channels a half-res pixel
-                    extra = 32.0 * 3 * IN * (IH // 2) * (IW // 2)
-                    res[name] = dict(
-                        max_abs_err=max(errs),
-                        ms=cuda_ms(lambda: fused(image, model)),
-                        plain_ms=cuda_ms(lambda: plain(image, model)),
-                        **roofline((image, model), got, count_flops(
-                            plain, (image, model)) + extra))
+                res.update(check_icnet_fronts(model, image, score=True))
             fused16 = model.fuse_to_cff1(stem1)
             fused8 = model.CFF2(fused16, f1)[0]
             wcls, bcls = model.packed("classifier", image.device,
@@ -1191,9 +1276,10 @@ def score_icnet_pool(seed: int):
     stacks = []
     scores, kernel_ms = timed_scores(score_step, prefetched(host, stacks))
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    want = dict(icnet_front_stem=POOL_BATCHES,
-                icnet_cff2_head_score=POOL_BATCHES, icnet_front=0,
-                icnet_head8_score=0)
+    want = dict(
+        icnet_front_stem=POOL_BATCHES * icnet_front.LAUNCHES_PER_CALL,
+        icnet_cff2_head_score=POOL_BATCHES, icnet_front=0,
+        icnet_head8_score=0)
     print(f"icnet score: {len(scores)} batches, launches {launches} "
           f"(expected {want})")
     if launches != want:
@@ -1226,8 +1312,8 @@ def score_icnet_pool(seed: int):
         if not err <= SCORE_TOL:
             raise AssertionError(f"the ICNet route {kw} failed")
     routes = {k: fn.launches for k, fn in wrappers.items()}
-    want = dict(icnet_front_stem=1, icnet_cff2_head_score=0, icnet_front=1,
-                icnet_head8_score=2)
+    want = dict(icnet_front_stem=icnet_front.LAUNCHES_PER_CALL,
+                icnet_cff2_head_score=0, icnet_front=1, icnet_head8_score=2)
     print(f"icnet score: the two routes launched {routes} (expected {want})")
     if routes != want:
         raise AssertionError("the ICNet routes did not launch their kernels")
@@ -1280,6 +1366,8 @@ def check_icnet_predict_kernels(seed: int) -> dict:
     res = {}
     for scale in ICNET_PREDICT_SCALES:
         model = score_model(seed, scale, "ICNet")
+        if not res:  # the fronts do not read the classifier
+            res.update(check_icnet_fronts(model, image, score=False))
         with torch.no_grad():
             f1, x_half = icnet_front.icnet_front_plain(image, model)
             fused16 = model.fuse_to_cff1(model.SharedStem.front(x_half))
@@ -1379,8 +1467,8 @@ def serve_icnet(seed: int):
     """Phase 8b, ICNet's serving path: make_predict_fn over uint8
     batches fed by device_prefetch; then one batch each through the
     fuse_cff2=False and fuse_stem=False routes. Returns (the predict
-    kernels' launch counts, kernel ms/batch, plain ms/batch, the
-    model)."""
+    kernels' and the fronts' launch counts on this route, kernel
+    ms/batch, plain ms/batch, the model)."""
     from semanticsegmentationactivelearning_tpu_torch.inference import (
         make_predict_fn)
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
@@ -1407,8 +1495,9 @@ def serve_icnet(seed: int):
         times.append((start, end))
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    want = dict(icnet_front_stem=BATCHES, icnet_cff2_head_predict=BATCHES,
-                icnet_front=0, icnet_head8_predict=0)
+    want = dict(icnet_front_stem=BATCHES * icnet_front.LAUNCHES_PER_CALL,
+                icnet_cff2_head_predict=BATCHES, icnet_front=0,
+                icnet_head8_predict=0)
     print(f"icnet serve: {len(outs)} batches, launches {launches} "
           f"(expected {want})")
     if launches != want:
@@ -1456,14 +1545,17 @@ def serve_icnet(seed: int):
         if bad > 1e-4 * count:
             raise AssertionError(f"the ICNet serving route {kw} failed")
     routes = {k: fn.launches for k, fn in wrappers.items()}
-    want = dict(icnet_front_stem=1, icnet_cff2_head_predict=0, icnet_front=1,
+    want = dict(icnet_front_stem=icnet_front.LAUNCHES_PER_CALL,
+                icnet_cff2_head_predict=0, icnet_front=1,
                 icnet_head8_predict=2)
     print(f"icnet serve: the two routes launched {routes} (expected {want})")
     if routes != want:
         raise AssertionError("the ICNet serving routes did not launch their "
                              "kernels")
     return (dict(icnet_cff2_head_predict=launches["icnet_cff2_head_predict"],
-                 icnet_head8_predict=routes["icnet_head8_predict"]),
+                 icnet_head8_predict=routes["icnet_head8_predict"],
+                 icnet_front_stem_predict=launches["icnet_front_stem"],
+                 icnet_front_predict=routes["icnet_front"]),
             kernel_ms, plain_ms, model)
 
 
@@ -1592,12 +1684,18 @@ def main(argv=None) -> int:
     for ln in ptxas:
         print(f"  {ln}")
     for fn, count in hmma_counts(b.path).items():
-        if any(k in fn for k in ("b10_kernel", "stage1_kernel", "tail",
-                                 "b20_kernel", "proj_kernel",
-                                 "block_kernel", "cff2_head_kernel")):
+        gated = any(k in fn for k in ("cff2_head_kernel",) + ICNET_FRONT)
+        if gated or any(k in fn for k in ("b10_kernel", "stage1_kernel",
+                                          "tail", "b20_kernel",
+                                          "proj_kernel", "block_kernel")):
             print(f"  SASS: {count} HMMA instructions in {fn}")
-            if "cff2_head_kernel" in fn and not count:
+            if gated and not count:
                 raise AssertionError(f"{fn} runs no tensor-core product")
+    spilled = {fn: n for fn, n in ptxas_spills(b.log).items()
+               if any(k in fn for k in ICNET_FRONT) and n}
+    if not b.log or spilled:
+        raise AssertionError(f"ICNet front kernels spill (or no ptxas "
+                             f"log): {spilled}")
 
     # 3. kernels against their plain versions
     state = seeded_state_dict(get_model("ENet", CLASSES), args.seed)

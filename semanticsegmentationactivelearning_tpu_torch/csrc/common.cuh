@@ -190,74 +190,8 @@ __device__ void deconv_stage(const Buf src, const Buf dst, const Rect out,
   }
 }
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// The ICNet front kernels' convolution (icnet_front.cu): over
-// the rectangle `out` of dst's grid,
-//   dst[r][c][oc] = act(b[oc] + sum_{kh,kw,ic}
-//       src[S*r + kh*D - P][S*c + kw*D - P][ic] * w[kh][kw][ic][oc])
-// with act = ReLU when kRelu, and zero outside the gh x gw grid. S, D
-// and P are the stride, the dilation and the low padding of XLA's SAME
-// rule (a stride-2 3x3 conv pads (0, 1): P = 0). Each work item takes PT
-// positions of `out` (consecutive, row-major) and 8 output channels, so
-// that one weight load serves PT positions and one source load 8
-// channels. w (HWIO) and b must be 16-byte aligned, OC a multiple of 8.
-template <int IC, int OC, int K, int S, int D, int P, int PT, bool kRelu>
-__device__ void conv_tile(const Buf src, const Buf dst, const Rect out,
-                          const float* __restrict__ w,
-                          const float* __restrict__ b, int gh, int gw) {
-  static_assert(OC % 8 == 0, "8 output channels per work item");
-  constexpr int OG = OC / 8;
-  const int np = out.size();
-  const int items = (np + PT - 1) / PT * OG;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int og = it % OG, pb = it / OG;
-    int base[PT];
-    float acc[PT][8];
-    const float4 b0 = ldg4(b + og * 8), b1 = ldg4(b + og * 8 + 4);
-#pragma unroll
-    for (int j = 0; j < PT; ++j) {
-      const int p = min(pb * PT + j, np - 1);
-      base[j] = src.r.idx(S * out.row(p) - P, S * out.col(p) - P) * src.cs;
-      acc[j][0] = b0.x, acc[j][1] = b0.y, acc[j][2] = b0.z, acc[j][3] = b0.w;
-      acc[j][4] = b1.x, acc[j][5] = b1.y, acc[j][6] = b1.z, acc[j][7] = b1.w;
-    }
-    for (int kh = 0; kh < K; ++kh) {
-      for (int kw = 0; kw < K; ++kw) {
-        const int off = (kh * D * src.r.w + kw * D) * src.cs;
-        const float* wk = w + (kh * K + kw) * IC * OC + og * 8;
-#pragma unroll 4
-        for (int ic = 0; ic < IC; ++ic) {
-          const float4 w0 = ldg4(wk + ic * OC), w1 = ldg4(wk + ic * OC + 4);
-#pragma unroll
-          for (int j = 0; j < PT; ++j) {
-            const float x = src.p[base[j] + off + ic];
-            acc[j][0] += x * w0.x, acc[j][1] += x * w0.y;
-            acc[j][2] += x * w0.z, acc[j][3] += x * w0.w;
-            acc[j][4] += x * w1.x, acc[j][5] += x * w1.y;
-            acc[j][6] += x * w1.z, acc[j][7] += x * w1.w;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < PT; ++j) {
-      const int p = pb * PT + j;
-      if (p >= np) break;
-      const int r = out.row(p), c = out.col(p);
-      const bool in = inside(r, c, gh, gw);
-      float* o = dst.at(r, c) + og * 8;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        o[k] = in ? (kRelu ? fmaxf(acc[j][k], 0.f) : acc[j][k]) : 0.f;
-    }
-  }
 }
 
 }  // namespace ssal

@@ -1,5 +1,6 @@
 // Tensor-core pieces of the ENet front, mid and tail kernels and ICNet's
-// CFF2 + head kernel (front.cu, mid.cu, tail.cu, icnet_head.cu): the
+// front and CFF2 + head kernels (front.cu, mid.cu, tail.cu,
+// icnet_front.cu, icnet_head.cu): the
 // warp-level TF32 product mma.sync.m16n8k8 with fp32 accumulation, taken
 // once (TF32) or three times over the hi/lo split of both operands
 // (3xTF32, about fp32's accuracy), cp.async copies into shared memory,
@@ -41,22 +42,23 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // One k-step of a warp's 16MT x 8NT tile: acc[m] += A_m (16x8) @ B (8 x
-// 8NT) for MT row tiles m, A_m given as this lane's four values a[m]
-// (rows g, g+8 x cols q, q+4), B the k-step's 8 rows of a shared-memory
-// weight [k][ws] from column n0, each B fragment read (and split) once
-// for all row tiles. PASSES 1: TF32 products; 3: hi*hi + hi*lo + lo*hi
-// (3xTF32).
+// 8NT) for the first `rows` (warp-uniform, at most MT) of MT row tiles m,
+// A_m given as this lane's four values a[m] (rows g, g+8 x cols q, q+4),
+// B the k-step's 8 rows of a shared-memory weight [k][ws] from column n0,
+// each B fragment read (and split) once for all row tiles. PASSES 1:
+// TF32 products; 3: hi*hi + hi*lo + lo*hi (3xTF32).
 template <int MT, int NT, int PASSES>
 __device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
                                                const float (&a)[MT][4],
                                                const float* w, int ws,
-                                               int n0) {
+                                               int n0, int rows = MT) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      if (m >= rows) break;
       if (PASSES == 3)
         split_tf32(a[m][i], ah[m][i], al[m][i]);
       else
@@ -72,6 +74,7 @@ __device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
       split_tf32(w1[8 * j], bh1, bl1);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
+        if (m >= rows) break;
         mma_tf32(acc[m][j], al[m], bh0, bh1);
         mma_tf32(acc[m][j], ah[m], bl0, bl1);
         mma_tf32(acc[m][j], ah[m], bh0, bh1);
@@ -79,7 +82,10 @@ __device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
     } else {
       const uint32_t b0 = to_tf32(w0[8 * j]), b1 = to_tf32(w1[8 * j]);
 #pragma unroll
-      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ah[m], b0, b1);
+      for (int m = 0; m < MT; ++m) {
+        if (m >= rows) break;
+        mma_tf32(acc[m][j], ah[m], b0, b1);
+      }
     }
   }
 }
@@ -109,6 +115,15 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
+}
+
+// Copy one float from global to shared memory, or write 0 there when
+// !valid (a source size of 0 bytes); src must be a valid address.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 // Wait for this thread's copies, then for every thread's.

@@ -148,7 +148,7 @@ class SharedStem(nn.Module):
 
     def front(self, x: torch.Tensor) -> torch.Tensor:
         """conv1_1..conv1_3 and the SAME 3x3/s2 max pool (the part the
-        front+stem kernel computes): half-res image -> stem1."""
+        front+stem kernels compute): half-res image -> stem1."""
         h = self.conv1_3(self.conv1_2(self.conv1_1(x)))
         return xops.max_pool_3x3_same(h)
 
@@ -258,7 +258,7 @@ class ICNet(PackedModel):
 
     def fuse_from_stem1(self, f1: torch.Tensor, stem1: torch.Tensor
                         ) -> torch.Tensor:
-        """As :meth:`fuse_from_front`, from the front+stem kernel's
+        """As :meth:`fuse_from_front`, from the front+stem kernels'
         outputs (f1 and the pooled stem features) -> fused8."""
         return self.CFF2(self.fuse_to_cff1(stem1), f1)[0]
 
@@ -270,16 +270,17 @@ class ICNet(PackedModel):
                                           cls.bias)
 
     def _fused_to_head(self, image: torch.Tensor, fuse_stem: bool,
-                       fuse_cff2: bool):
+                       fuse_cff2: bool, score: bool):
         """The kernel chain up to the head, shared by :meth:`fused_score`
-        and :meth:`fused_predict`: ``(fused16, f1)`` when the CFF2 + head
+        (``score``: the front kernels at the score route's precision) and
+        :meth:`fused_predict`: ``(fused16, f1)`` when the CFF2 + head
         kernel ends it, else ``(fused8, None)`` for the head kernel."""
         if fuse_stem:
-            f1, stem1 = icnet_front.fused_icnet_front_stem(image, self)
+            f1, stem1 = icnet_front.fused_icnet_front_stem(image, self, score)
             if fuse_cff2:
                 return self.fuse_to_cff1(stem1), f1
             return self.fuse_from_stem1(f1, stem1), None
-        f1, x_half = icnet_front.fused_icnet_front(image, self)
+        f1, x_half = icnet_front.fused_icnet_front(image, self, score)
         return self.fuse_from_front(f1, x_half), None
 
     @torch.no_grad()
@@ -292,8 +293,8 @@ class ICNet(PackedModel):
         runs the hand-written kernels, on a CPU tensor their plain
         versions.
 
-        The front+stem kernel, the plain stem res-blocks, tail and CFF1,
-        then the CFF2 + head predict kernel; with ``fuse_cff2=False`` the
+        The front+stem kernels (in 3xTF32), the plain stem res-blocks,
+        tail and CFF1, then the CFF2 + head predict kernel; with ``fuse_cff2=False`` the
         plain CFF2 and the head predict kernel; with ``fuse_stem=False``
         the front kernel, the plain stem, tail and CFFs, then the head
         predict kernel. Needs a 3-channel image with H and W multiples
@@ -303,7 +304,7 @@ class ICNet(PackedModel):
             raise ValueError(
                 f"ICNet fused_predict needs [N,H,W,3] with H, W divisible "
                 f"by 32, got {tuple(image.shape)}")
-        x, f1 = self._fused_to_head(image, fuse_stem, fuse_cff2)
+        x, f1 = self._fused_to_head(image, fuse_stem, fuse_cff2, False)
         if f1 is not None:
             labels = icnet_head.fused_cff2_head8_predict(x, f1, self)
         else:
@@ -323,8 +324,9 @@ class ICNet(PackedModel):
         ``ICNet.fused_score`` routes it. On a CUDA tensor each route runs
         the hand-written kernels, on a CPU tensor their plain versions.
 
-        Entropy on a 3-channel image: the front+stem kernel, the plain
-        stem res-blocks, tail and CFF1, then the CFF2 + head kernel; with
+        Entropy on a 3-channel image: the front+stem kernels (in one TF32
+        pass), the plain stem res-blocks, tail and CFF1, then the CFF2 +
+        head kernel; with
         ``fuse_cff2=False`` the plain CFF2 and the head kernel; with
         ``fuse_stem=False`` the front kernel (f1 and the half-res image),
         the plain stem, tail and CFFs, then the head kernel. Other
@@ -336,7 +338,7 @@ class ICNet(PackedModel):
             raise ValueError(
                 f"ICNet input dims must be divisible by 32, got {h}x{w}")
         if measure == "entropy" and c == 3:
-            x, f1 = self._fused_to_head(image, fuse_stem, fuse_cff2)
+            x, f1 = self._fused_to_head(image, fuse_stem, fuse_cff2, True)
             if f1 is not None:
                 return icnet_head.fused_cff2_head8_entropy_score(x, f1, self)
             wcls, bcls = self.packed("classifier", image.device,

@@ -54,8 +54,7 @@ SIGNATURES = {
     "ssal_deconv_partials": ([_I, _I], _I),
     "ssal_deconv_score": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_icnet_front_pack_size": ([], _I),
-    "ssal_icnet_front": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "ssal_icnet_front_stem": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ssal_icnet_front_part": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_head8_partials": ([_I, _I], _I),
     "ssal_head8_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_head8_predict": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -76,7 +75,8 @@ SIGNATURES = {
 class Build:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str        # nvcc's output (ptxas registers and spills)
+    log: str        # nvcc's output (ptxas registers and spills), kept
+                    # beside the library
 
 
 def sources():
@@ -105,8 +105,10 @@ def build() -> Build:
     """Compile the library unless this exact source set is built."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
+    log_file = out_dir / "nvcc.log"
     if lib.exists():
-        return Build(lib, 0.0, "")
+        return Build(lib, 0.0,
+                     log_file.read_text() if log_file.exists() else "")
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -128,6 +130,7 @@ def build() -> Build:
         if res.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + res.stdout
                                + res.stderr)
+        log_file.write_text("".join(log))
         os.replace(part, lib)
     return Build(lib, time.perf_counter() - t0, "".join(log))
 

@@ -71,6 +71,7 @@ TC_BODIES = {
         "for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) "
         "emu::cp16(dst + i, src + i);",
     "void cp_async16": "emu::cp16(dst, src);",
+    "void cp_async4": "emu::cp4(dst, src, valid);",
     "void cp_async_wait_sync": "emu::wait_all(); __syncthreads();",
     "void cp_async_commit": "emu::commit();",
     "void cp_async_wait_group_sync": "emu::wait_group(N); __syncthreads();",
@@ -133,6 +134,47 @@ def load(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def run_front(n: int, h8: int, w8: int, seed: int, parts) -> None:
+    """ICNet's front kernels (csrc/icnet_front.cu) on a seeded image of
+    ``n x 8h8 x 8w8`` against their plain versions, both routes: each
+    output's max |error| over its maximum."""
+    from chip_smoke import seeded_state_dict
+    from ..models import ICNet
+    from ..ops.kernels import icnet_front
+
+    lib = load(build(("icnet_front",)))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr()) if t is not None else None
+    h, w = 8 * h8, 8 * w8
+    model = ICNet(19)
+    model.load_state_dict(seeded_state_dict(model, 1, 5.0, "ICNet"))
+    model.eval()
+    image = torch.from_numpy(np.random.default_rng(seed).uniform(
+        size=(n, h, w, 3)).astype(np.float32))
+    pack = icnet_front.pack_icnet_front(model)
+    stem = model.SharedStem
+    with torch.no_grad():
+        f1, x_half = icnet_front.icnet_front_plain(image, model)
+        c12 = stem.conv1_2(stem.conv1_1(x_half))
+        want = {"f1": f1, "x_half": x_half, "c12": c12,
+                "stem1": stem.front(x_half)}
+    outs = {"branch1": ("f1",), "front": ("f1", "x_half"), "stem12": ("c12",),
+            "stem3": ("stem1",)}
+    for score in (1, 0):
+        for part in parts:
+            got = [torch.full_like(want[k], float("nan")) for k in outs[part]]
+            src = c12 if part == "stem3" else image
+            t0 = time.time()
+            kbuild.check(lib.ssal_icnet_front_part(
+                icnet_front.PARTS[part], ptr(src), ptr(pack), ptr(got[0]),
+                ptr(got[1] if len(got) > 1 else None), n, h, w, score, None),
+                part)
+            errs = ", ".join(
+                f"{k} {(g - want[k]).abs().max() / want[k].abs().max():.2e}"
+                for k, g in zip(outs[part], got))
+            print(f"{part} ({'TF32' if score else '3xTF32'}): max|k-p| / max "
+                  f"{errs} ({time.time() - t0:.1f} s)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("h8", type=int)
@@ -141,10 +183,19 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--immediate", action="store_true",
                     help="cp.async copies land at once")
+    ap.add_argument("--front", nargs="*", default=None, metavar="PART",
+                    help="run ICNet's front kernels (these parts of "
+                         "icnet_front.PARTS, all by default) on an image of "
+                         "8 H8 x 8 W8 in place of the heads")
     args = ap.parse_args(argv)
     if args.immediate:
         os.environ["EMU_IMMEDIATE"] = "1"
     sys.path.insert(0, str(kbuild.PACKAGE.parent))
+    if args.front is not None:
+        from ..ops.kernels import icnet_front
+        run_front(args.n, args.h8, args.w8, args.seed,
+                  args.front or list(icnet_front.PARTS))
+        return
     from chip_smoke import decided_labels, seeded_state_dict
     from ..models import ICNet
     from ..ops import nn as xops

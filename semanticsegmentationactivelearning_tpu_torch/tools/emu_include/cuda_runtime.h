@@ -28,7 +28,6 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
-template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
 #define __global__
@@ -42,7 +41,7 @@ inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return
 
 namespace emu {
 struct Fiber { dim3 tid; ucontext_t ctx; bool done; char* stack; };
-struct Copy { float* dst; const float* src; };
+struct Copy { float* dst; const float* src; int n; };  // src null: zeros
 inline Fiber* cur = nullptr;
 inline std::vector<Fiber> fibers;
 inline ucontext_t sched_ctx;
@@ -101,22 +100,39 @@ inline void launch(dim3 grid, dim3 block, size_t smem, std::function<void()> k) 
 }
 inline float* smem() { return smem_buf.data(); }
 // cp.async: copy now (immediate mode) or when waited on (deferred mode)
-inline void cp16(float* d, const float* s) {
-  if (!deferred) { memcpy(d, s, 16); return; }
-  groups[fid()].back().push_back({d, s});
+inline void land(const Copy& c) {
+  if (c.src) memcpy(c.dst, c.src, 4 * c.n); else memset(c.dst, 0, 4 * c.n);
 }
+inline void cp(float* d, const float* s, int n) {
+  if (!deferred) { land({d, s, n}); return; }
+  groups[fid()].back().push_back({d, s, n});
+}
+inline void cp16(float* d, const float* s) { cp(d, s, 4); }
+inline void cp4(float* d, const float* s, bool valid) { cp(d, valid ? s : nullptr, 1); }
 inline void commit() { groups[fid()].push_back({}); }
 inline void wait_group(int n) {
   auto& gs = groups[fid()];
   // closed groups are all but the last (open) one
   int closed = (int)gs.size() - 1;
-  int land = closed - n;
-  if (land <= 0) return;
-  for (int i = 0; i < land; ++i) for (auto& c : gs[i]) memcpy(c.dst, c.src, 16);
-  gs.erase(gs.begin(), gs.begin() + land);
+  int done = closed - n;
+  if (done <= 0) return;
+  for (int i = 0; i < done; ++i) for (auto& c : gs[i]) land(c);
+  gs.erase(gs.begin(), gs.begin() + done);
 }
-inline void wait_all() { auto& gs = groups[fid()]; for (auto& g : gs) for (auto& c : g) memcpy(c.dst, c.src, 16); gs.assign(1, {}); }
+inline void wait_all() { auto& gs = groups[fid()]; for (auto& g : gs) for (auto& c : g) land(c); gs.assign(1, {}); }
 }  // namespace emu
+
+// __ldg is a load through the global state space: on shared memory the
+// card faults (cudaErrorInvalidAddressSpace), so the stand-in aborts.
+template <class T> inline T __ldg(const T* p) {
+  const char* c = (const char*)p;
+  const char* s = (const char*)emu::smem_buf.data();
+  if (c >= s && c < s + 4 * emu::smem_buf.size()) {
+    fprintf(stderr, "emu: __ldg on shared memory\n");
+    abort();
+  }
+  return *p;
+}
 
 #define threadIdx (emu::cur->tid)
 #define blockIdx (emu::bidx)

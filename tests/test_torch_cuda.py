@@ -499,6 +499,91 @@ def test_icnet_kernels_match_plain_versions(icnet, shape):
             assert torch.equal(got, run())
 
 
+# launches a call of a wrapper that launches more than one kernel
+PER_CALL = {"front_stem": icnet_front.LAUNCHES_PER_CALL}
+@pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
+@pytest.mark.parametrize("shape", ICNET_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_icnet_fronts_on_both_routes(icnet, shape, score):
+    """Both front entries on each route against their plain versions: f1
+    and stem1 within 1e-4 of their maxima in 3xTF32 (predict), 1e-3 in
+    one TF32 pass (score); x_half within 1e-5; f1 bit-equal between the
+    entries; each route's error under a tenth (3xTF32) or a half (TF32)
+    of its plain version's with all six convs' products one precision
+    below (chip_smoke.py PRECISION_GATE); one launch for the front,
+    LAUNCHES_PER_CALL for the front + stem."""
+    from chip_smoke import PRECISION_GATE, rounded
+    image = _image(shape, 17)
+    precision = icnet_front.PRECISION["score" if score else "predict"]
+    tol = 1e-3 if score else 1e-4
+    before = (icnet_front.fused_icnet_front.launches,
+              icnet_front.fused_icnet_front_stem.launches)
+    with torch.no_grad():
+        f1p, xhp = icnet_front.icnet_front_plain(image, icnet)
+        stp = icnet.SharedStem.front(xhp)
+        f1, xh = icnet_front.fused_icnet_front(image, icnet, score=score)
+        f1s, st = icnet_front.fused_icnet_front_stem(image, icnet,
+                                                     score=score)
+        torch.cuda.synchronize()
+        assert (icnet_front.fused_icnet_front.launches - before[0],
+                icnet_front.fused_icnet_front_stem.launches - before[1]) \
+            == (1, icnet_front.LAUNCHES_PER_CALL)
+        assert torch.equal(f1, f1s)
+        assert (xh - xhp).abs().max().item() <= 1e-5
+        _, rnd, share = PRECISION_GATE[precision]
+        lower = rounded(icnet, rnd, lambda m: icnet_front.icnet_front_stem_plain(
+            image, m), icnet_front.TC_CONVS)
+        for got, want, low in ((f1, f1p, lower[0]), (st, stp, lower[1])):
+            err = (got - want).abs().max().item()
+            assert err <= tol * want.abs().max().item()
+            assert err <= share * (low - want).abs().max().item()
+
+
+@pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
+def test_icnet_front_launches_alone(icnet, score):
+    """Each launch of icnet_front.PARTS against its plain part (stem3 on
+    the plain conv1_2 output), ragged against every tile (96x160)."""
+    image = _image((2, 96, 160, 3), 18)
+    tol = 1e-3 if score else 1e-4
+    stem = icnet.SharedStem
+    with torch.no_grad():
+        f1, x_half = icnet_front.icnet_front_plain(image, icnet)
+        c12 = stem.conv1_2(stem.conv1_1(x_half))
+        want = dict(f1=f1, x_half=x_half, c12=c12, stem1=stem.front(x_half))
+        outs = {"branch1": ("f1",), "front": ("f1", "x_half"),
+                "stem12": ("c12",), "stem3": ("stem1",)}
+        assert set(outs) == set(icnet_front.PARTS)
+        for part, names in outs.items():
+            got = icnet_front.launch_part(part, c12 if part == "stem3"
+                                          else image, icnet, score, (96, 160))
+            for g, k in zip(got, names):
+                bound = 1e-5 if k == "x_half" else \
+                    tol * want[k].abs().max().item()
+                assert (g - want[k]).abs().max().item() <= bound, (part, k)
+
+
+def test_icnet_front_kernels_on_the_tensor_cores_without_spills():
+    """ptxas: no ICNet front kernel instance spills; SASS: each has HMMA
+    (tensor-core) instructions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from chip_smoke import ICNET_FRONT, hmma_counts, ptxas_spills
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        build)
+    b = build.build()
+    spills = {fn: n for fn, n in ptxas_spills(b.log).items()
+              if any(k in fn for k in ICNET_FRONT)}
+    # a kernel a part (the front's: branch1_kernel<true>), two routes
+    instances = 2 * len(icnet_front.PARTS)
+    assert len(spills) == instances and not any(spills.values()), spills
+    counts = hmma_counts(b.path)
+    if not counts:
+        pytest.skip("the toolkit has no cuobjdump: SASS not read")
+    hmma = {fn: n for fn, n in counts.items()
+            if any(k in fn for k in ICNET_FRONT)}
+    assert len(hmma) == instances and all(hmma.values()), hmma
+
+
 # (route, fused_score flags, the wrappers the route launches)
 ICNET_ROUTES = [
     ("default", {}, ("front_stem", "cff2_head")),
@@ -520,7 +605,8 @@ def test_icnet_fused_score_routes_count_their_launches(icnet, name, flags,
     got = icnet.fused_score(image, "entropy", **flags)
     torch.cuda.synchronize()
     rose = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-    assert rose == {k: int(k in route) for k in wrappers}
+    assert rose == {k: int(k in route) * PER_CALL.get(k, 1)
+                    for k in wrappers}
     with torch.no_grad():
         want = acquisition.mean_confidence(icnet(image), "entropy", C)
     assert (got - want).abs().max().item() <= 1e-4
@@ -650,7 +736,8 @@ def test_icnet_fused_predict_routes_count_their_launches(icnet, name, flags,
     labels = icnet.fused_predict(image, **flags)
     torch.cuda.synchronize()
     rose = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-    assert rose == {k: int(k in route) for k in wrappers}
+    assert rose == {k: int(k in route) * PER_CALL.get(k, 1)
+                    for k in wrappers}
     assert labels.dtype == torch.int32 and labels.shape == (2, 64, 96)
     with torch.no_grad():
         logits = icnet(image)

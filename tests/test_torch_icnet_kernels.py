@@ -200,9 +200,12 @@ def test_packs_hold_the_kernels_weights(setup):
     """Pack sizes are the C entries' formulas; packs are cached per
     device until load_state_dict."""
     tm = setup[2]
-    conv = lambda cin, cout: 9 * cin * cout + cout
+    # the fronts: six GEMM records (a 3-channel conv one tap of K = 27
+    # padded to 32 rows, a 32-channel one nine taps of 32), the rows at
+    # stride 40 for 32 outputs and 72 for 64, each with its bias
+    rec = lambda taps, cout, stride: taps * 32 * stride + cout
     assert icnet_front.pack_icnet_front(tm).numel() == 2 * (
-        conv(3, 32) + conv(32, 32) + conv(32, 64))
+        rec(1, 32, 40) + rec(9, 32, 40) + rec(9, 64, 72))
     # CFF2 + head: two GEMM records, [kc ; kh] [1216, 136] with bc + bh,
     # the classifier [128, 8] with bcls, C = 5 padded to 8
     assert icnet_head.pack_cff2_head(tm).numel() == (
