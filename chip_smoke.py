@@ -10,8 +10,9 @@ Phases (any failure raises, so the exit code is not 0):
      semanticsegmentationactivelearning_tpu_torch/csrc for sm_90a, one
      process per source; prints ptxas's registers and spills and the
      HMMA (tensor-core) instruction count of each front, mid, tail, ICNet
-     front and CFF2 + head kernel's SASS (each ICNet front and CFF2 + head
-     instance must have some, and no ICNet front instance may spill).
+     front, CFF2 + head and head kernel's SASS (each ICNet front, CFF2 +
+     head and head instance must have some, and no ICNet front or head
+     instance may spill).
   3. kernels: the serving kernels (front, mid, tail predict) against
      their plain PyTorch versions on the same inputs at ENet-19, batch 2,
      1024x2048, with seeded weights (glorot-uniform convs, noised BN
@@ -24,7 +25,7 @@ Phases (any failure raises, so the exit code is not 0):
      B1_0, each stage-1 bottleneck), the mid's (B2_0, the projection
      launches, the fused and the unfused blocks, a dilated block both
      ways at d = 1, 2, 4) and the tail's (its stage-4
-     and stage-5 kernels alone, the decoder score kernel on the same
+     and stage-5 kernels alone, the decoder score route on the plain
      stage-4 output), each with its TFLOP/s of least work.
   4. serve: a seeded checkpoint saved and restored through the port's
      checkpoint module, then make_predict_fn over uint8 batches fed by
@@ -40,8 +41,11 @@ Phases (any failure raises, so the exit code is not 0):
         same inputs,
         |score difference| <= 1e-4 per image, with the smoke's Final
         kernel (x25), the recipe's (x1) and a sharp one (x1000), so that
-        both ends of the entropy are held; each one's time beside its
-        plain version's; the tail's split, its x4 gates and TFLOP/s as
+        both ends of the entropy are held; each one's time, TFLOP/s of
+        least work and bound beside its plain version's time; the decoder
+        route's scores (the tail's stage-5 kernel on its score route)
+        also under PRECISION_GATE with B5_0's, B5_1's and the Final's
+        products rounded; the tail's split, its x4 gates and TFLOP/s as
         in phase 3.
      b. the pool: 6 uint8 batches through device_prefetch, /255 and
         make_score_step(model, 19, "entropy"), with the counters zeroed
@@ -62,7 +66,10 @@ Phases (any failure raises, so the exit code is not 0):
         their score route, all six convs rounded), f1 bit-equal between
         the two fronts, x_half to 1e-5, scores to 1e-4 per image
         and bit-equal from run to run, with the classifier x5, x1, x25
-        and x1000; each one's time beside its plain version's; the front
+        and x1000; each one's time, TFLOP/s and bound beside its plain
+        version's time; the head kernel's scores under PRECISION_GATE
+        with the classifier's operands rounded (its 3xTF32 against
+        TF32); the front
         + stem's launches timed alone and its TFLOP/s of least work; the CFF2
         + head kernel's split (the GEMM alone, its fused8 to 1e-3 of the
         plain maximum and under PRECISION_GATE, and the head end) and its
@@ -83,10 +90,12 @@ Phases (any failure raises, so the exit code is not 0):
         versions on the same inputs (the plain chain's fused16 and
         fused8), with the classifier x5 and x25: no label may differ
         where the plain logits' top-2 margin exceeds 1e-3, and at least
-        99% of the pixels must be so decided; each one's time beside its
-        plain version's; the CFF2 + head kernel's split and gate as in 7a
-        (fused8 in 3xTF32) and the decided labels that its plain version
-        in TF32 moves;
+        99% of the pixels must be so decided; each one's time, TFLOP/s
+        and bound beside its plain version's time; the CFF2 + head
+        kernel's split and gate as in 7a (fused8 in 3xTF32) and the
+        decided labels that its plain version in TF32 moves; the score
+        twins timed at batch 2, the head kernel's scores under its gate
+        as in 7a;
      b. serving: 10 uint8 batches through device_prefetch and
         make_predict_fn, with the counters zeroed before (front+stem's
         launches and CFF2 + head predict once a batch); the maps against the plain
@@ -169,7 +178,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "mid_score": (f"{_CSRC}/mid.cu", f"{_PALLAS}:2184"),
     "tail": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2810"),
     "tail_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2720"),
-    "decoder_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:687"),
+    "decoder_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:687"),
     "deconv_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:344"),
     "icnet_front_stem": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3346"),
     "icnet_front_stem_predict": (f"{_CSRC}/icnet_front.cu",
@@ -186,9 +195,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                      "tools/probe_mosaic_floor.py:103 and "
                      "tools/probe_front_packing.py:134"),
 }
-# the ICNet front's kernels (csrc/icnet_front.cu): phase 2 fails on an
-# instance with no HMMA or with spills
+# the ICNet front's kernels (csrc/icnet_front.cu) and the head kernel
+# (csrc/icnet_head.cu): phase 2 fails on an instance with no HMMA or with
+# spills (the CFF2 + head kernel's: on one with no HMMA)
 ICNET_FRONT = ("branch1_kernel", "stem12_kernel", "stem3_kernel")
+NO_SPILLS = ICNET_FRONT + ("head8_kernel",)
+HMMA_GATED = NO_SPILLS + ("cff2_head_kernel",)
 # phase 8a's classifiers: x5 already decides >99.9% of pixels at the
 # 1e-3 margin (measured on the CPU at 256x512); x25 is ENet's Final scale
 ICNET_PREDICT_SCALES = (ICNET_CLS_SCALE, 25.0)
@@ -309,14 +321,18 @@ def count_flops(fn, args) -> float:
     return float(fc.get_total_flops())
 
 
-def roofline(args, outs, flops: float, peak: float = PEAK_FLOPS) -> dict:
+def roofline(args, outs, flops: float, peak: float = PEAK_FLOPS,
+             fp32_flops: float = 0.0) -> dict:
     """The least time the card could take for ``flops`` operations on
-    ``args``: the larger of the operations over ``peak`` (the fp32 peak
-    unless the kernel computes in another precision) and of the bytes
-    (each input read once, each output in ``outs`` written once) over
-    the memory rate. A model in ``args`` counts as all of its
-    weights (1.4 MB for ENet-19, 27 MB for ICNet-19, more than any one
-    kernel reads)."""
+    ``args`` (and ``fp32_flops`` more on the CUDA cores): the largest of
+    the operations of each kind over its peak (``flops`` over ``peak``,
+    the fp32 peak unless the kernel computes them in another precision;
+    the tensor and CUDA cores issue side by side, so their times do not
+    add) and of the bytes (each input read once, each output in ``outs``
+    written once) over the memory rate. A model in ``args`` counts as
+    all of its weights (1.4 MB for ENet-19, 27 MB for ICNet-19, more
+    than any one kernel reads): pass the tensors a kernel reads where
+    its bound is set by bytes."""
     nbytes = 0
     for a in args:
         if isinstance(a, torch.Tensor):
@@ -325,10 +341,11 @@ def roofline(args, outs, flops: float, peak: float = PEAK_FLOPS) -> dict:
             nbytes += sum(p.numel() * p.element_size()
                           for p in a.parameters())
     nbytes += sum(o.numel() * o.element_size() for o in outs)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops = max(flops / peak, fp32_flops / PEAK_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=flops, bytes=nbytes)
+                flops=flops + fp32_flops, bytes=nbytes)
 
 
 def softmax_flops(n, h, w, c) -> float:
@@ -525,16 +542,18 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def rounded(model, rnd, fn, parts=("",)):
     """``fn(m)`` (a plain function of the model) on a copy ``m`` of
-    ``model`` with both operands of every product (each conv's and
-    transposed conv's input and weights) inside the submodules named
-    ``parts`` (the whole model by default) rounded by ``rnd`` and float32
-    sums: what a kernel that multiplies those products at that precision
-    computes."""
-    from semanticsegmentationactivelearning_tpu_torch.models import blocks
+    ``model`` with both operands of every product (each conv's,
+    transposed conv's and 1x1 classifier's input and weights) inside the
+    submodules named ``parts`` (the whole model by default) rounded by
+    ``rnd`` and float32 sums: what a kernel that multiplies those
+    products at that precision computes."""
+    from semanticsegmentationactivelearning_tpu_torch.models import (
+        blocks, icnet)
     m = copy.deepcopy(model)
     mods = {mod for name in parts for mod in m.get_submodule(name).modules()}
     for mod in mods:
-        if isinstance(mod, (blocks.Conv, blocks.ConvTranspose)):
+        if isinstance(mod, (blocks.Conv, blocks.ConvTranspose,
+                            icnet.Conv1x1Bias)):
             mod.weight.data = rnd(mod.weight.data)
             mod.register_forward_pre_hook(
                 lambda _, args: (rnd(args[0]),) + args[1:])
@@ -574,9 +593,10 @@ def tail_split(y, sw2, m1, model, r: dict, score: bool) -> dict:
     """The tail's two kernels timed alone on the inputs of its check
     (stage 4, then stage 5 + Final + argmax or entropy), x4 against the
     plain stage 4 (to 1e-3 of its maximum, and to PRECISION_GATE),
-    the decoder score kernel on the plain stage 4's output (stage 5 +
-    Final + entropy in one kernel of the fp32 design), and the tail's
-    achieved TFLOP/s of least work (``r``'s flops over its ms)."""
+    the decoder score route on the plain stage 4's output (stage 5 +
+    Final + entropy: the same stage-5 kernel through its own wrapper),
+    and the tail's achieved TFLOP/s of least work (``r``'s flops over
+    its ms)."""
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
         decoder, tail)
     n, h8, w8, _ = y.shape
@@ -602,8 +622,8 @@ def tail_split(y, sw2, m1, model, r: dict, score: bool) -> dict:
     print(f"tail {'score' if score else 'predict'} split (batch {n}, "
           f"{8 * h8}x{8 * w8}, {precision}): x4 max|k-p| {err:.3e} "
           f"(bound {bound:.3e}); stage 4 {out['stage4_ms']:.3f} ms, stage 5 "
-          f"+ Final {out['stage5_ms']:.3f} ms, the decoder score kernel on "
-          f"the same stage-4 output {out['decoder_ms']:.3f} ms; the tail "
+          f"+ Final {out['stage5_ms']:.3f} ms, the decoder score route on "
+          f"the plain stage-4 output {out['decoder_ms']:.3f} ms; the tail "
           f"{r['ms']:.3f} ms = {out['tflops']:.1f} TFLOP/s of least work "
           f"({r['flops'] / 1e9:.2f} GFLOP), bound {r['bound_ms']:.3f} ms "
           f"({r['bound_by']})")
@@ -833,18 +853,34 @@ def check_score_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
+                    # the decoder route runs the tail's stage-5 kernel
                     peak = (TC_PEAK[tail.PRECISION["score"]]
-                            if name == "tail_score" else PEAK_FLOPS)
-                    r.update(roofline(args, (got,), count_flops(plain, args)
+                            if name in ("tail_score", "decoder_score")
+                            else PEAK_FLOPS)
+                    # the decoder route reads f4, mask1 and the tail
+                    # pack's stage-5 records, not the whole model
+                    read = args
+                    if name == "decoder_score":
+                        first = tail.tail_layout(CLASSES)[tail.T5_FIRST][0]
+                        read = (f4, m1, model.packed(
+                            "tail", f4.device, tail.pack_tail)[first:])
+                    r.update(roofline(read, (got,), count_flops(plain, args)
                                       + softmax_flops(SN, SH, SW, CLASSES),
                                       peak))
                     if name == "tail_score":
                         r.update(tail_split(y, sw2, m1, model, r, score=True))
+                    if name == "decoder_score":
+                        precision_gate(
+                            "decoder scores", tail.PRECISION["score"], err,
+                            model, lambda m: decoder.decoder_score_plain(
+                                f4, m1, m), want,
+                            ("Bottleneck5_0", "Bottleneck5_1", "Final"))
         del x1, m1, y, sw2, f4, pre
     for k, r in res.items():
-        print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
-              f"(batch {SN}, {SH}x{SW})")
+        print(f"{k}: kernel {r['ms']:.3f} ms "
+              f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s of least work), "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}) (batch {SN}, {SH}x{SW})")
     return res
 
 
@@ -1026,6 +1062,20 @@ def scored(model, fused: bool):
     return lambda stack: step({"image": stack.float().div_(255.0)})
 
 
+def head8_scores(model, fused8: torch.Tensor) -> torch.Tensor:
+    """The plain head's entropy scores of ``fused8``
+    (``icnet_head.head8_entropy_score_plain``), its classifier run as the
+    model's ``Classifier`` module, so that :func:`rounded` rounds that
+    product's operands (parts ``("Classifier",)``)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops import (
+        acquisition)
+    from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
+    _, h8, w8, _ = fused8.shape
+    cls4 = model.Classifier(xops.resize_bilinear(fused8, (2 * h8, 2 * w8)))
+    return acquisition.chunked_upsample_mean_confidence(
+        cls4, 4, "entropy", model.num_classes)
+
+
 # nonzero taps of the composed 8x upsample's weights (_HEAD8_W,
 # csrc/icnet_head.cu kHead8W) per output phase, averaged over the 8 phases
 HEAD8_TAPS = (2 + 2 + 3 + 3 + 3 + 3 + 2 + 2) / 8
@@ -1047,8 +1097,8 @@ def peak(name: str) -> float:
     """The peak rate of an ICNet kernel (a KERNELS name) on its route
     (predict where the name ends in "_predict", else score): the fronts'
     and the CFF2 + head kernel's on the tensor cores at the route's
-    precision (icnet_front.PRECISION, icnet_head.PRECISION), the head
-    kernel's fp32."""
+    precision (icnet_front.PRECISION, icnet_head.PRECISION); else fp32
+    (the head kernel's bound is :func:`head_roofline`)."""
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
         icnet_front, icnet_head)
     route = "predict" if name.endswith("_predict") else "score"
@@ -1057,6 +1107,32 @@ def peak(name: str) -> float:
         if name.startswith(prefix):
             return TC_PEAK[module.PRECISION[route]]
     return PEAK_FLOPS
+
+
+def head_roofline(args, outs, flops: float, n: int, h8: int,
+                  w8: int) -> dict:
+    """:func:`roofline` of the head kernel on ``n x h8 x w8`` positions:
+    its classifier's products on the tensor cores at
+    icnet_head.CLASSIFIER_PRECISION, the rest of ``flops`` (the upsample
+    and the entropy or the argmax) at the fp32 peak."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_head)
+    cls = 2.0 * n * h8 * w8 * 128 * CLASSES
+    return roofline(args, outs, cls,
+                    TC_PEAK[icnet_head.CLASSIFIER_PRECISION], flops - cls)
+
+
+def head8_gate(model, fused8, got, want) -> float:
+    """The head kernel's scores ``got`` against the plain head's
+    ``want``, under PRECISION_GATE with the classifier's operands
+    rounded one precision below its own; returns the max |error|."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        icnet_head)
+    err = (got - want).abs().max().item()
+    precision_gate("head8 scores", icnet_head.CLASSIFIER_PRECISION, err,
+                   model, lambda m: head8_scores(m, fused8), want,
+                   ("Classifier",))
+    return err
 
 
 def cff2_split(model, fused16, f1, fused8, r: dict, score: bool) -> dict:
@@ -1231,7 +1307,12 @@ def check_icnet_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
-                    r.update(roofline(args, (got,), flops, peak(name)))
+                    if name == "icnet_head8_score":
+                        r.update(head_roofline(args, (got,), flops, IN, h8,
+                                               w8))
+                        head8_gate(model, fused8, got, want)
+                    else:
+                        r.update(roofline(args, (got,), flops, peak(name)))
                     if name == "icnet_cff2_head_score":
                         # the scores the kernel writes, and its GEMM alone
                         precision_gate(
@@ -1245,9 +1326,10 @@ def check_icnet_kernels(seed: int) -> dict:
     for k in ("icnet_front", "icnet_front_stem", "icnet_cff2_head_score",
               "icnet_head8_score"):
         r = res[k]
-        print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
-              f"(batch {IN}, {IH}x{IW})")
+        print(f"{k}: kernel {r['ms']:.3f} ms "
+              f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s of least work), "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}) (batch {IN}, {IH}x{IW})")
     return res
 
 
@@ -1405,7 +1487,11 @@ def check_icnet_predict_kernels(seed: int) -> dict:
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
-                    r.update(roofline(args, (got,), flops, peak(name)))
+                    if name == "icnet_head8_predict":
+                        r.update(head_roofline(args, (got,), flops, N, h8,
+                                               w8))
+                    else:
+                        r.update(roofline(args, (got,), flops, peak(name)))
                     if name == "icnet_cff2_head_predict":
                         # the labels of the plain version with CFF2's
                         # products in TF32, one precision below the route
@@ -1430,11 +1516,20 @@ def check_icnet_predict_kernels(seed: int) -> dict:
                         fused8, wcls, bcls, CLASSES))
                 print(f"score twins at batch {N}: CFF2 + head {cff2_ms:.3f} "
                       f"ms, head {head_ms:.3f} ms")
+                # the head kernel's scores at batch 2, under its gate
+                err = head8_gate(
+                    model, fused8, icnet_head.fused_head8_entropy_score(
+                        fused8, wcls, bcls, CLASSES),
+                    icnet_head.head8_entropy_score_plain(fused8, wcls, bcls,
+                                                         CLASSES))
+                if not err <= SCORE_TOL:
+                    raise AssertionError(f"head8 scores differ by {err}")
         del f1, x_half, fused16, fused8, want, decided
     for k, r in res.items():
-        print(f"{k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
-              f"(batch {N}, {H}x{W})")
+        print(f"{k}: kernel {r['ms']:.3f} ms "
+              f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s of least work), "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}) (batch {N}, {H}x{W})")
     return res
 
 
@@ -1684,18 +1779,22 @@ def main(argv=None) -> int:
     for ln in ptxas:
         print(f"  {ln}")
     for fn, count in hmma_counts(b.path).items():
-        gated = any(k in fn for k in ("cff2_head_kernel",) + ICNET_FRONT)
+        gated = any(k in fn for k in HMMA_GATED)
         if gated or any(k in fn for k in ("b10_kernel", "stage1_kernel",
                                           "tail", "b20_kernel",
                                           "proj_kernel", "block_kernel")):
             print(f"  SASS: {count} HMMA instructions in {fn}")
             if gated and not count:
                 raise AssertionError(f"{fn} runs no tensor-core product")
-    spilled = {fn: n for fn, n in ptxas_spills(b.log).items()
-               if any(k in fn for k in ICNET_FRONT) and n}
-    if not b.log or spilled:
-        raise AssertionError(f"ICNet front kernels spill (or no ptxas "
-                             f"log): {spilled}")
+    spills = ptxas_spills(b.log)
+    head8 = {fn: n for fn, n in spills.items() if "head8_kernel" in fn}
+    print(f"  head8_kernel: {len(head8)} instances, spill bytes "
+          f"{sorted(head8.values())}")
+    spilled = {fn: n for fn, n in spills.items()
+               if any(k in fn for k in NO_SPILLS) and n}
+    if not b.log or spilled or len(head8) != 2:
+        raise AssertionError(f"ICNet front or head kernels spill (or no "
+                             f"ptxas log): {spilled}, {head8}")
 
     # 3. kernels against their plain versions
     state = seeded_state_dict(get_model("ENet", CLASSES), args.seed)

@@ -1,15 +1,12 @@
-// The ENet decoder's last stages as device functions, shared by the
-// tail kernels (tail.cu: predict and entropy score) and the decoder and
-// deconv score kernels (decoder.cu), so that every route runs the same
-// stage-5, Final and entropy code; ICNet's head kernels (icnet_head.cu)
-// take its EntropyAcc and block_partial.
+// The ENet decoder's last device functions and the score's reduction:
+// final_stage() for the deconv score kernel (decoder.cu) with its
+// EntropyAccExact, EntropyAcc for ICNet's head kernels (icnet_head.cu),
+// block_partial for every score kernel (decoder.cu, tail.cu,
+// icnet_head.cu).
 //
-// stage5() runs Bottleneck5_0 (1x1 projection, 3x3/s2 transposed conv,
-// expand; residual = 1x1 conv unpooled by the B1_0 mask) and
-// Bottleneck5_1 for one tile of TQ x TQ quarter-res positions.
-// final_stage() runs the Final 3x3/s2 transposed conv for the tile's
-// 2TQ x 2TQ half-res positions (4TQ x 4TQ pixels) and ends each pixel
-// either in a first-max argmax or in its entropy confidence
+// final_stage() runs the Final 3x3/s2 transposed conv for a tile's
+// SIDE x SIDE half-res positions (2SIDE x 2SIDE pixels) and ends each
+// pixel either in a first-max argmax or in its entropy confidence
 // 1 - H(softmax)/log C, online over the classes. block_partial() sums
 // the block's confidences in a fixed order (no atomics), so that a
 // score is bit-repeatable from run to run.
@@ -19,119 +16,46 @@
 
 namespace ssal {
 
-constexpr int TQ = 8;            // quarter-res tile side of stage 5
-constexpr int SIDE = 2 * TQ;     // half-res positions per tile side
-constexpr int S5_THREADS = 256;  // block size of every stage-5 kernel
-// stage-5 buffer sizes in floats (rectangle positions x channel stride)
-constexpr int S5_Q2N = (TQ + 3) * (TQ + 3);              // B5_0 proj
-constexpr int S5_H0N = (2 * TQ + 3) * (2 * TQ + 3);      // B5_0 out
-constexpr int S5_H1N = (2 * TQ + 1) * (2 * TQ + 1);      // B5_1 out
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int S5_AF = cmax(cmax(S5_Q2N * 17, S5_H0N * 5), S5_THREADS);
-constexpr int S5_BF = cmax(S5_H0N * 9, S5_H1N * 5);
-constexpr int S5_XF = S5_H0N * 17;
-
-struct UpParams {
-  Affine proj, deconv, exp;
-  const float* res_w;  // [cin][cout], the residual 1x1 conv (no BN)
-  const float* res_alpha;
-};
-
-inline UpParams take_up(Cursor& c, int cin, int f, int fo, int cout) {
-  UpParams p;
-  p.proj = take_affine(c, cin * f, f, true);
-  p.deconv = take_affine(c, 9 * f * fo, fo, true);
-  p.exp = take_affine(c, fo * cout, cout, false);
-  p.res_w = c.take(cin * cout);
-  p.res_alpha = c.take(cout);
-  return p;
-}
-
-inline int up_pack_size(int cin, int f, int fo, int cout) {
-  return cin * f + 2 * f + 9 * f * fo + 2 * fo + fo * cout + cout +
-         cin * cout + cout;
-}
-
-struct Stage5Params {
-  UpParams b50;          // 64 -> 16 -> 8 -> 16
-  BottleneckParams b51;  // 16, projection 4
-  const float* final_w;  // [3][3][16][C]
-};
-
-inline Stage5Params take_stage5(Cursor& c, int num_classes) {
-  Stage5Params p;
-  p.b50 = take_up(c, 64, 16, 8, 16);
-  p.b51 = take_bottleneck(c, 16, 4);
-  p.final_w = c.take(9 * 16 * num_classes);
-  return p;
-}
-
-inline int stage5_pack_size(int num_classes) {
-  return up_pack_size(64, 16, 8, 16) + bottleneck_pack_size(16, 4) +
-         9 * 16 * num_classes;
-}
-
-// Bottleneck5_0 + Bottleneck5_1 for the quarter-res tile at (qr0, qc0).
-// X4 holds the stage-4 features (64 channels) over at least the rect
-// {qr0-2, qc0-2, TQ+3, TQ+3}, zero outside the Hq x Wq grid; mn is the
-// image's B1_0 mask [Hq][Wq][64] (one-hot at channel p*16 + c). A and B
-// are scratch of S5_AF and S5_BF floats; X5p (S5_XF floats) receives
-// the B5_1 output over {2qr0-1, 2qc0-1, 2TQ+1, 2TQ+1}, zero outside the
-// half-res grid. Ends with a barrier.
-__device__ __forceinline__ void stage5(const Buf X4,
-                                       const float* __restrict__ mn,
-                                       const Stage5Params P, float* A,
-                                       float* B, float* X5p, int qr0,
-                                       int qc0, int Hq, int Wq) {
-  const int Hh = 2 * Hq, Wh = 2 * Wq;
-  const Rect q2 = {qr0 - 2, qc0 - 2, TQ + 3, TQ + 3};
-  const Rect h0 = {2 * qr0 - 2, 2 * qc0 - 2, 2 * TQ + 3, 2 * TQ + 3};
-  const Rect h1 = {2 * qr0 - 1, 2 * qc0 - 1, 2 * TQ + 1, 2 * TQ + 1};
-  const Buf X5 = {X5p, h0, 17};
-
-  // --- Bottleneck5_0 ----------------------------------------------------
-  const Buf P5 = {A, q2, 17};
-  conv_stage<64, 16, 1, 1>(X4, P5, q2, 1, P.b50.proj, Hq, Wq);
-  // residual: the 1x1 conv 64 -> 16 unpooled by mask1, into X5
-  for (int t = threadIdx.x; t < h0.size() * 16; t += blockDim.x) {
-    const int oc = t % 16, p = t / 16;
-    const int r = h0.row(p), c = h0.col(p);
-    float v = 0.f;
-    if (inside(r, c, Hh, Wh)) {
-      const int qr = r >> 1, qc = c >> 1;
-      const int ph = 2 * (r & 1) + (c & 1);
-      if (__ldg(mn + ((size_t)qr * Wq + qc) * 64 + ph * 16 + oc) != 0.f) {
-        const float* xs = X4.at(qr, qc);
-#pragma unroll 8
-        for (int ic = 0; ic < 64; ++ic)
-          v += xs[ic] * __ldg(P.b50.res_w + ic * 16 + oc);
-      }
-    }
-    X5.at(r, c)[oc] = v;
-  }
-  __syncthreads();
-  const Buf D5 = {B, h0, 9};
-  deconv_stage<16, 8>(P5, D5, h0, P.b50.deconv, Hh, Wh);
-  __syncthreads();
-  expand_residual<8, 16>(D5, X5, h0, P.b50.exp, P.b50.res_alpha, Hh, Wh);
-  __syncthreads();
-
-  // --- Bottleneck5_1 ----------------------------------------------------
-  const Buf T5 = {A, h0, 5};
-  const Buf U5 = {B, h1, 5};
-  conv_stage<16, 4, 1, 1>(X5, T5, h0, 1, P.b51.proj, Hh, Wh);
-  __syncthreads();
-  conv_stage<4, 4, 3, 3>(T5, U5, h1, 1, P.b51.conv, Hh, Wh);
-  __syncthreads();
-  expand_residual<4, 16>(U5, X5, h1, P.b51.exp, P.b51.res_alpha, Hh, Wh);
-  __syncthreads();
+constexpr int SIDE = 16;         // half-res positions per tile side
+constexpr int S5_THREADS = 256;  // block size of the deconv score kernel
+__host__ __device__ constexpr int cmax(int a, int b) {
+  return a > b ? a : b;
 }
 
 // A pixel's softmax entropy confidence 1 + (S/Z - log Z)/log C, online
 // over its classes: Z = sum e^(l-m), S = sum e^(l-m)(l-m), m the running
-// maximum, both sums rescaled when m grows. add() takes one logit (first
-// for the pixel's first class); conf() takes 1/log C.
+// maximum, both sums rescaled when m grows. start() takes the pixel's
+// first logit, add() each later one; conf() takes 1/log C. Each add()
+// takes one exp, __expf (ex2.approx: a few ulp, flushed below 2^-126,
+// where a term is lost against Z >= 1), before its branch: e^-|d| is the
+// new term's weight when the maximum stays and the old sums' when it
+// grows.
 struct EntropyAcc {
+  float m, z, s;
+  __device__ __forceinline__ void start(float logit) {
+    m = logit, z = 1.f, s = 0.f;
+  }
+  __device__ __forceinline__ void add(float logit) {
+    const float d = logit - m;
+    const float e = __expf(-fabsf(d));
+    if (d > 0.f) {
+      s = e * (s - d * z);
+      z = e * z + 1.f;
+      m = logit;
+    } else {
+      z += e;
+      s += e * d;
+    }
+  }
+  __device__ __forceinline__ float conf(float inv_log_c) const {
+    return 1.f + (s / z - logf(z)) * inv_log_c;
+  }
+};
+
+// EntropyAcc's sums for final_stage(), branch first: expf (full
+// precision) of m - logit when the maximum grows, of logit - m when it
+// stays. add() takes one logit (first for the pixel's first class).
+struct EntropyAccExact {
   float m = 0.f, z = 0.f, s = 0.f;
   __device__ __forceinline__ void add(float logit, bool first) {
     if (first) {
@@ -162,7 +86,7 @@ struct EntropyAcc {
 // thread takes one half-res position and its four output phases. Pixels
 // outside the H x W image are skipped. Predict (kScore false) writes
 // the first-max label to labels_n [H][W]; score returns the sum of this
-// thread's pixel confidences, one class at a time (EntropyAcc).
+// thread's pixel confidences, one class at a time (EntropyAccExact).
 template <bool kScore>
 __device__ __forceinline__ float final_stage(const Buf X5,
                                              const float* __restrict__ fw,
@@ -189,7 +113,7 @@ __device__ __forceinline__ float final_stage(const Buf X5,
       }
     int best_c = 0;
     float m = 0.f;
-    EntropyAcc ent;
+    EntropyAccExact ent;
     for (int cls = 0; cls < C; ++cls) {
       float logit = 0.f;
 #pragma unroll

@@ -66,10 +66,24 @@
 // ReLU'd fused8, which replaces the buffers in shared memory, with each
 // out-of-grid position of the rectangle reading its clamped neighbour;
 // then head8(). fp32 storage and accumulation everywhere. 189 KB of
-// shared memory, one block of 384 threads an SM. head8_kernel stages
-// fused8 over its 8x8 tile's rectangle and runs the classifier as fp32
-// FMAs (its products are 1/10 of the CFF2 kernel's), then the same
-// head8().
+// shared memory, one block of 384 threads an SM.
+//
+// What bounds head8_kernel on an H100: the head, one exp and about a
+// dozen other operations a pixel and class (319 M pixel-classes at batch
+// 8, 1024x2048, 19 classes), against 134 MB of fused8 (0.040 ms). The
+// fp32 design it replaces spent most of its time in the classifier's
+// loads (two a multiply-add: a staged x[k] and an __ldg of wcls) and
+// staged fused8 4 bytes a load over an 8x8 tile's rectangle (1.56x the
+// tile). Design: a 16x8 tile (1.41x), fused8 over its rectangle staged
+// by 16-byte cp.async copies at a bank-safe channel stride, each
+// out-of-grid position holding its clamped neighbour; wcls staged once a
+// block at the classifier record's stride; the classifier on the tensor
+// cores through classify(), the CFF2 kernel's own, its logits written
+// over the staged fused8; then head8(). Two blocks of 512 threads an SM
+// at 19 classes (107 KB each): tools/probe_head8.py measured this tile
+// fastest on score and within 20% of the fastest on predict, of 16x8
+// with 256 threads, 8x8, 8x16 and 16x16 with 512 or 1024 (PERF.md);
+// 16x16 would take at most 104 classes.
 #include "decoder.cuh"
 #include "tc.cuh"
 
@@ -111,16 +125,24 @@ __device__ float head8(const float* CL, int C, int n, int R0, int C0,
       const float* y = x + b * C + cls;
       return w0 * y[0] + w1 * y[RW * C] + w2 * y[2 * RW * C];
     };
+    // the logit of pixel phase u from the three row-blended columns
+    const auto px = [&](int u, float v0, float v1, float v2) {
+      return kHead8W[u][0] * v0 + kHead8W[u][1] * v1 + kHead8W[u][2] * v2;
+    };
+    // the first class starts each pixel's argmax or entropy, the others
+    // follow
+    float v0 = col(0, 0), v1 = col(1, 0), v2 = col(2, 0);
     if constexpr (kPredict) {
       float best[8];
       int lab[8];
-      for (int cls = 0; cls < C; ++cls) {
-        const float v0 = col(0, cls), v1 = col(1, cls), v2 = col(2, cls);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) best[u] = px(u, v0, v1, v2), lab[u] = 0;
+      for (int cls = 1; cls < C; ++cls) {
+        v0 = col(0, cls), v1 = col(1, cls), v2 = col(2, cls);
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
-          const float l =
-              kHead8W[u][0] * v0 + kHead8W[u][1] * v1 + kHead8W[u][2] * v2;
-          if (cls == 0 || l > best[u]) best[u] = l, lab[u] = cls;
+          const float l = px(u, v0, v1, v2);
+          if (l > best[u]) best[u] = l, lab[u] = cls;
         }
       }
       unsigned long long piece = 0;
@@ -131,13 +153,12 @@ __device__ float head8(const float* CL, int C, int n, int R0, int C0,
           labels + ((size_t)n * 8 * H8 + 8 * r + t) * 8 * W8 + 8 * c) = piece;
     } else {
       EntropyAcc ent[8];
-      for (int cls = 0; cls < C; ++cls) {
-        const float v0 = col(0, cls), v1 = col(1, cls), v2 = col(2, cls);
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
-          ent[u].add(
-              kHead8W[u][0] * v0 + kHead8W[u][1] * v1 + kHead8W[u][2] * v2,
-              cls == 0);
+      for (int u = 0; u < 8; ++u) ent[u].start(px(u, v0, v1, v2));
+      for (int cls = 1; cls < C; ++cls) {
+        v0 = col(0, cls), v1 = col(1, cls), v2 = col(2, cls);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) ent[u].add(px(u, v0, v1, v2));
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) acc += ent[u].conf(inv_log_c);
@@ -154,65 +175,125 @@ __device__ __forceinline__ void store_partial(float v, float* slots,
                     blockIdx.x);
 }
 
-// -- head8_kernel ------------------------------------------------------------
+constexpr int AS = 132;  // channel stride of fused8 (and fused16): = 4
+                         // mod 32, so that A fragment reads hit 32 banks
 
-constexpr int HT = 8;       // its 1/8-res tile side
-constexpr int HS = HT + 2;  // with the head's one-position halo
-constexpr int THREADS = 256;
+// -- the classifier ------------------------------------------------------------
 
-// CL[p][cls] = bcls + sum_k X[clamp(p)][k] wcls[k][cls] over the head's
-// rectangle {R0-1, C0-1, HS, HS}, p clamped to the H8 x W8 grid. X is a
-// 128-channel buffer holding every in-grid position of that rectangle.
-__device__ void classify(const Buf X, float* CL, const float* __restrict__ wcls,
-                         const float* __restrict__ bcls, int C, int R0,
-                         int C0, int H8, int W8) {
-  for (int it = threadIdx.x; it < HS * HS * C; it += blockDim.x) {
-    const int cls = it % C, p = it / C;
-    const int r = clampi(R0 - 1 + p / HS, 0, H8 - 1);
-    const int c = clampi(C0 - 1 + p % HS, 0, W8 - 1);
-    const float* x = X.at(r, c);
-    float v = __ldg(bcls + cls);
-#pragma unroll 8
-    for (int k = 0; k < 128; ++k) v += x[k] * __ldg(wcls + k * C + cls);
-    CL[it] = v;
+// The classifier's products run in 3xTF32 on both routes (1.7% of the
+// CFF2 kernel's): its weights rounded to TF32 shift every pixel's logits
+// alike, which a mean over the pixels does not average away (in one
+// pass they took the error of a score at the classifier x5 from 5.9e-5
+// to 9.8e-5 of the 1e-4 gate; PERF.md).
+constexpr int kClassifierPasses = 3;
+constexpr int CLS_NTW = 4;  // n-tiles (of 8 classes) a warp at most
+
+// CL[p * C + cls] = bcls[cls] + sum_k row(p)[k] w[k][cls] for the M
+// positions p of a head's rectangle and the classes cls < C, on the
+// tensor cores (mma.sync in kClassifierPasses) with fp32 sums. w is the
+// classifier record [128][ws], its classes zero-padded to whole n-tiles
+// (ws = bstride of that), in shared or global memory; row(p) points at
+// a position's 128 channels. An m-tile of 16 positions (the last one
+// repeated past M) takes ceil(n-tiles / CLS_NTW) warps, each up to
+// CLS_NTW n-tiles of it; the m-tiles go in rounds, as many as the
+// block's warps hold, and every warp of a round reads its rows before
+// any warp of it writes. So CL may overlay the rows where position p's
+// logits lie at or before row p's channels (rows of stride >= C from CL,
+// as in head8_kernel). Ends with a barrier.
+template <class Row>
+__device__ void classify(Row row, int M, const float* w, int ws,
+                         const float* bcls, int C, float* CL) {
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int nt = (C + 7) / 8;
+  const int wpm = (nt + CLS_NTW - 1) / CLS_NTW;  // warps an m-tile
+  const int part = warp % wpm;
+  const int ntw = min(CLS_NTW, nt - part * CLS_NTW);
+  const int n0 = part * CLS_NTW * 8;
+  const int per_round = nw / wpm, mtiles = (M + 15) / 16;
+  for (int base = 0; base < mtiles; base += per_round) {
+    const int mt = base + warp / wpm;
+    const bool active = warp / wpm < per_round && mt < mtiles;
+    float acc[1][CLS_NTW][4];
+#pragma unroll
+    for (int j = 0; j < CLS_NTW; ++j)
+      acc[0][j][0] = acc[0][j][1] = acc[0][j][2] = acc[0][j][3] = 0.f;
+    if (active) {
+      const float* r0 = row(min(16 * mt + g, M - 1));
+      const float* r1 = row(min(16 * mt + g + 8, M - 1));
+#pragma unroll 4
+      for (int k = 0; k < 128; k += 8) {
+        const float a[1][4] = {
+            {r0[k + q], r1[k + q], r0[k + q + 4], r1[k + q + 4]}};
+        mma_kstep_rows<1, CLS_NTW, kClassifierPasses>(acc, a, w + k * ws, ws,
+                                                      n0, 1, ntw);
+      }
+    }
+    __syncthreads();  // every row of the round is read
+    if (!active) continue;
+#pragma unroll
+    for (int j = 0; j < CLS_NTW; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 16 * mt + g + 8 * h, cls = n0 + 8 * j + 2 * q;
+        if (j >= ntw || p >= M) continue;
+        if (cls < C) CL[p * C + cls] = acc[0][j][2 * h] + bcls[cls];
+        if (cls + 1 < C)
+          CL[p * C + cls + 1] = acc[0][j][2 * h + 1] + bcls[cls + 1];
+      }
   }
+  __syncthreads();
 }
 
-constexpr int H8_F = HS * HS * 129;  // fused8 over the head's rectangle
-// + the classifier logits (C a position) and score's reduction slots
-inline size_t head_smem_bytes(int num_classes) {
-  return (size_t)(H8_F + HS * HS * num_classes + THREADS) * 4;
+// -- head8_kernel ------------------------------------------------------------
+
+// The tile: HR x HC 1/8-res positions, HEAD8_THREADS threads, at least
+// HEAD8_BLOCKS blocks an SM (tools/probe_head8.py --tile measures other
+// shapes); its head rectangle has a one-position halo.
+constexpr int HR = 16, HC = 8, HEAD8_THREADS = 512, HEAD8_BLOCKS = 2;
+constexpr int HRW = HC + 2, HM = (HR + 2) * HRW;
+constexpr int HF8 = HM * AS;  // fused8 over the rectangle, then CL over it
+
+// fused8 [HM][AS] (then the logits [HM][C] over it) and the classifier
+// record [128][ws] (then the score's reduction slots)
+inline size_t head8_smem_bytes(int ws) {
+  return (size_t)(HF8 + 128 * ws) * 4;
 }
 
 // Score writes partials, predict labels; the other pointer is unused.
+// ws: the staged classifier's stride, bstride(C padded to 8s).
 template <bool kPredict>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(HEAD8_THREADS, HEAD8_BLOCKS)
     head8_kernel(const float* __restrict__ f8, const float* __restrict__ wcls,
                  const float* __restrict__ bcls, float* __restrict__ partials,
-                 signed char* __restrict__ labels, int H8, int W8, int C) {
-  extern __shared__ float smem[];
+                 signed char* __restrict__ labels, int H8, int W8, int C,
+                 int ws) {
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.z;
-  const int R0 = blockIdx.y * HT, C0 = blockIdx.x * HT;
-  const Buf X = {smem, {R0 - 1, C0 - 1, HS, HS}, 129};
-  float* const CL = smem + H8_F;
+  const int R0 = blockIdx.y * HR, C0 = blockIdx.x * HC;
+  float* const F8 = smem;
+  float* const W = smem + HF8;
   const float* fn = f8 + (size_t)n * H8 * W8 * 128;
-  for (int t = threadIdx.x; t < HS * HS * 128; t += blockDim.x) {
-    const int p = t / 128;
-    const int r = X.r.row(p), c = X.r.col(p);
-    if (inside(r, c, H8, W8))
-      X.at(r, c)[t % 128] = __ldg(fn + ((size_t)r * W8 + c) * 128 + t % 128);
+  for (int i = threadIdx.x; i < HM * 32; i += blockDim.x) {
+    const int p = i / 32, k = i % 32 * 4;
+    const int r = clampi(R0 - 1 + p / HRW, 0, H8 - 1);
+    const int c = clampi(C0 - 1 + p % HRW, 0, W8 - 1);
+    cp_async16(F8 + p * AS + k, fn + ((size_t)r * W8 + c) * 128 + k);
   }
-  __syncthreads();
-  classify(X, CL, wcls, bcls, C, R0, C0, H8, W8);
-  __syncthreads();
-  const float v = head8<kPredict, HT, HT>(CL, C, n, R0, C0, H8, W8, labels);
-  if constexpr (!kPredict) store_partial(v, CL + HS * HS * C, partials, n);
+  for (int i = threadIdx.x; i < 128 * ws; i += blockDim.x) {
+    const int k = i / ws, cls = i % ws;
+    W[i] = cls < C ? __ldg(wcls + k * C + cls) : 0.f;
+  }
+  cp_async_wait_sync();
+  classify([&](int p) -> const float* { return F8 + p * AS; }, HM, W, ws,
+           bcls, C, F8);
+  const float v = head8<kPredict, HR, HC>(F8, C, n, R0, C0, H8, W8, labels);
+  if constexpr (!kPredict) store_partial(v, W, partials, n);
 }
 
 // -- cff2_head_kernel ----------------------------------------------------------
 
-constexpr int AS = 132;   // channel stride of fused16 and fused8
-constexpr int F1S = 68;   // of f1 (both = 4 mod 32: A reads hit 32 banks)
+constexpr int F1S = 68;   // channel stride of f1 (= 4 mod 32, as AS)
 constexpr int KMAIN = 9 * 128 + 64;  // [dilated taps | f1] rows of the record
 constexpr int WS = 136;   // the record's row stride (bstride(128))
 constexpr int KC = 32;    // k rows a ring chunk
@@ -246,13 +327,6 @@ constexpr size_t CFF2_SMEM =
 static_assert(CFF2_SMEM <= 232448, "227 KB of shared memory a block");
 
 enum { OUT_SCORE, OUT_PREDICT, OUT_FUSED8 };
-
-// The classifier's products run in 3xTF32 on both routes (1.7% of the
-// kernel's): its weights rounded to TF32 shift every pixel's logits
-// alike, which a mean over the pixels does not average away (in one
-// pass they took the error of a score at the classifier x5 from 5.9e-5
-// to 9.8e-5 of the 1e-4 gate; PERF.md).
-constexpr int kClassifierPasses = 3;
 
 // kOut: the head's partials (score) or labels (predict), or fused8 for
 // the tile's positions (the GEMM alone); out is partials or fused8.
@@ -410,19 +484,13 @@ __global__ void __launch_bounds__(CFF2_THREADS, 1)
   float* const CL = smem + F8_F;
   const float* wcls = pack + KMAIN * WS + 128;
   const float* bcls = wcls + 128 * cls_ws;
-  gemm<1, kClassifierPasses, 128>(
-      0, M, (C + 7) / 8 * 8, 1, wcls, cls_ws,
-      [&](int p, int) {
-        p = min(p, M - 1);
+  classify(
+      [&](int p) -> const float* {
         const int r = clampi(R0 - 1 + p / RW, 0, H8 - 1);
         const int c = clampi(C0 - 1 + p % RW, 0, W8 - 1);
         return F8 + ((r - R0 + 1) * RW + c - C0 + 1) * AS;
       },
-      [&](int p, int cls, float v0, float v1) {
-        if (cls < C) CL[p * C + cls] = v0 + bcls[cls];
-        if (cls + 1 < C) CL[p * C + cls + 1] = v1 + bcls[cls + 1];
-      });
-  __syncthreads();
+      M, wcls, cls_ws, bcls, C, CL);
   const float v =
       head8<kOut == OUT_PREDICT, TR, TC>(CL, C, n, R0, C0, H8, W8, labels);
   if constexpr (kOut == OUT_SCORE) store_partial(v, smem + SLOTS, out, n);
@@ -438,7 +506,7 @@ constexpr int kPredictPasses = 3, kScorePasses = 1;
 using namespace ssal;
 
 extern "C" int ssal_head8_partials(int h8, int w8) {
-  return ((h8 + HT - 1) / HT) * ((w8 + HT - 1) / HT);
+  return ((h8 + HR - 1) / HR) * ((w8 + HC - 1) / HC);
 }
 
 namespace {
@@ -447,13 +515,16 @@ template <bool kPredict>
 int launch_head8(const float* f8, const float* wcls, const float* bcls,
                  float* partials, signed char* labels, int n, int h8, int w8,
                  int num_classes, void* stream) {
-  const size_t smem = head_smem_bytes(num_classes);
+  const int ws = bstride((num_classes + 7) / 8 * 8);
+  const size_t smem = head8_smem_bytes(ws);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(head8_kernel<kPredict>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const dim3 grid((w8 + HT - 1) / HT, (h8 + HT - 1) / HT, n);
-  head8_kernel<kPredict><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      f8, wcls, bcls, partials, labels, h8, w8, num_classes);
+  const dim3 grid((w8 + HC - 1) / HC, (h8 + HR - 1) / HR, n);
+  head8_kernel<kPredict><<<grid, HEAD8_THREADS, smem,
+                           (cudaStream_t)stream>>>(
+      f8, wcls, bcls, partials, labels, h8, w8, num_classes, ws);
   return (int)cudaGetLastError();
 }
 

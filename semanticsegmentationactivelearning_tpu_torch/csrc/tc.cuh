@@ -41,17 +41,19 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One k-step of a warp's 16MT x 8NT tile: acc[m] += A_m (16x8) @ B (8 x
-// 8NT) for the first `rows` (warp-uniform, at most MT) of MT row tiles m,
-// A_m given as this lane's four values a[m] (rows g, g+8 x cols q, q+4),
-// B the k-step's 8 rows of a shared-memory weight [k][ws] from column n0,
-// each B fragment read (and split) once for all row tiles. PASSES 1:
-// TF32 products; 3: hi*hi + hi*lo + lo*hi (3xTF32).
+// One k-step of a warp's 16MT x 8NT tile: acc[m][j] += A_m (16x8) @ B_j
+// (8 x 8) for the first `rows` of MT row tiles m and the first `cols` of
+// NT column tiles j (both warp-uniform), A_m given as this lane's four
+// values a[m] (rows g, g+8 x cols q, q+4), B the k-step's 8 rows of a
+// weight [k][ws] from column n0, each B fragment read (and split) once
+// for all row tiles. PASSES 1: TF32 products; 3: hi*hi + hi*lo + lo*hi
+// (3xTF32).
 template <int MT, int NT, int PASSES>
 __device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
                                                const float (&a)[MT][4],
                                                const float* w, int ws,
-                                               int n0, int rows = MT) {
+                                               int n0, int rows = MT,
+                                               int cols = NT) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
@@ -68,6 +70,7 @@ __device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
   const float* w1 = w0 + 4 * ws;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
+    if (j >= cols) break;
     if (PASSES == 3) {
       uint32_t bh0, bl0, bh1, bl1;
       split_tf32(w0[8 * j], bh0, bl0);

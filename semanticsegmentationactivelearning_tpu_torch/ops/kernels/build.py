@@ -48,9 +48,6 @@ SIGNATURES = {
     "ssal_tail_stage4": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_tail_decode_predict": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_tail_decode_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "ssal_decoder_pack_size": ([_I], _I),
-    "ssal_decoder_partials": ([_I, _I], _I),
-    "ssal_decoder_score": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_deconv_partials": ([_I, _I], _I),
     "ssal_deconv_score": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "ssal_icnet_front_pack_size": ([], _I),

@@ -14,10 +14,12 @@ output) with ``f1 [N, H8, W8, 64]`` -> the same of ``CFF2(fused16,
 f1)``. Full-resolution (and 1/4-res) logits never reach memory on the
 kernel path, nor does fused8 on the CFF2 + head path.
 
-The CFF2 + head kernel runs CFF2 and the classifier on the tensor cores
-at the precision of its route (:data:`PRECISION`), from two GEMM records
-(:func:`pack_cff2_head`); the head kernel's classifier and both heads'
-upsample and entropy or argmax are fp32 on the CUDA cores.
+The CFF2 + head kernel runs CFF2 on the tensor cores at the precision
+of its route (:data:`PRECISION`), from two GEMM records
+(:func:`pack_cff2_head`); both kernels run the classifier on the tensor
+cores in 3xTF32 (:data:`CLASSIFIER_PRECISION`), the head kernel from
+``wcls`` staged at that record's stride; both heads' upsample and
+entropy or argmax are fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ MAX_PREDICT_CLASSES = 127  # labels are int8
 # the error of a score from 5.9e-5 to 9.8e-5 of the 1e-4 tolerance,
 # measured on the H100 by tools/probe_cff2.py (PERF.md).
 PRECISION = {"predict": "3xTF32", "score": "TF32"}
+# The classifier's products in both kernels on both routes
+# (csrc/icnet_head.cu kClassifierPasses, classify())
+CLASSIFIER_PRECISION = "3xTF32"
 KMAIN = 9 * 128 + 64  # the CFF2 record's k rows: the dilated taps, f1
 
 

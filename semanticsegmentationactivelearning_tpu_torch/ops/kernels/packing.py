@@ -1,8 +1,8 @@
 """BN folding and weight packing for the kernels of ``csrc/``.
 
-A pack is one flat float32 tensor; the C entries slice it in the same
-order (``csrc/common.cuh`` ``take_*``), or read it as GEMM records
-(``csrc/tc.cuh`` ``Layer``: :func:`gemm_record`). Weights go to the JAX
+A pack is one flat float32 tensor that the C entries read at fixed
+offsets: GEMM records (``csrc/tc.cuh`` ``Layer``: :func:`gemm_record`)
+and the few tables beside them. Weights go to the JAX
 package's HWIO layout ``[kh, kw, in, out]``; an eval BatchNorm
 ``x * s + t`` after a conv folds into ``w * s`` (per output channel)
 and a shift ``t``.
@@ -33,31 +33,6 @@ def affine(w_hwio: torch.Tensor, bn, prelu=None) -> List[torch.Tensor]:
     if prelu is not None:
         parts.append(prelu.alpha)
     return parts
-
-
-def bottleneck(blk) -> List[torch.Tensor]:
-    """A ``Bottleneck`` (plain 3x3) or ``BottleneckDownsample`` (2x2/s2
-    projection): proj, conv, expand and the residual PReLU."""
-    return (affine(hwio(blk.proj_conv), blk.proj_bn, blk.proj_prelu)
-            + affine(hwio(blk.conv), blk.conv_bn, blk.conv_prelu)
-            + affine(hwio(blk.exp_conv), blk.exp_bn)
-            + [blk.res_prelu.alpha])
-
-
-def upsample(blk) -> List[torch.Tensor]:
-    """A ``BottleneckUpsample``: proj, transposed conv, expand, the
-    residual 1x1 conv (no BN) and the residual PReLU."""
-    return (affine(hwio(blk.proj_conv), blk.proj_bn, blk.proj_prelu)
-            + affine(deconv_hwio(blk.deconv), blk.conv_bn, blk.conv_prelu)
-            + affine(hwio(blk.exp_conv), blk.exp_bn)
-            + [hwio(blk.res_conv), blk.res_prelu.alpha])
-
-
-def stage5(model) -> List[torch.Tensor]:
-    """ENet's B5_0, B5_1 and the Final kernel (``csrc/decoder.cuh``
-    ``take_stage5``): the tail of every tail and decoder pack."""
-    return (upsample(model.Bottleneck5_0) + bottleneck(model.Bottleneck5_1)
-            + [deconv_hwio(model.Final.deconv)])
 
 
 def bstride(n: int) -> int:

@@ -52,6 +52,9 @@ _RECORDS = ((1, 128, 32, 2), (1, 128, 64, 0), (9, 32, 16, 2),
             (1, 64, 16, 2), (1, 64, 16, 0), (9, 16, 8, 2),
             (1, 8, 16, 2),                                   # B5_0
             (1, 16, 8, 2), (1, 40, 8, 2), (1, 8, 16, 2))     # B5_1
+# the first record that tail5_kernel reads, B5_0's projection (csrc/
+# tail.cu T5_FIRST): it reads the pack from there to its end
+T5_FIRST = 10
 
 
 def final_cp(c: int) -> int:
@@ -212,8 +215,10 @@ def decode_plain(x4: torch.Tensor, mask1: torch.Tensor, model,
     return logits.argmax(dim=-1).to(torch.int8)
 
 
-def _decode(x4, mask1, model, score: bool) -> torch.Tensor:
-    """Launch ``tail5_kernel`` (counted by the caller). The kernel
+def launch_decode(x4, mask1, model, score: bool) -> torch.Tensor:
+    """Launch ``tail5_kernel`` on CUDA tensors, uncounted (the callers
+    count theirs: :func:`fused_tail_decode`, the tail's wrappers and
+    ``decoder.fused_decoder_entropy_score``). With ``score`` the kernel
     writes one partial sum per block; their sum over the pixel count is
     the JAX wrapper's ``sum(partial_sums, 1) / pixels``."""
     build.require(x4, "x4", torch.float32, (None, None, None, 64))
@@ -256,7 +261,7 @@ def fused_tail_decode(x4: torch.Tensor, mask1: torch.Tensor, model,
     :func:`decode_plain` on CPU tensors."""
     if x4.device.type == "cpu":
         return decode_plain(x4, mask1, model, score)
-    out = _decode(x4, mask1, model, score)
+    out = launch_decode(x4, mask1, model, score)
     fused_tail_decode.launches += 1
     return out
 
@@ -277,7 +282,7 @@ def fused_tail_predict(y: torch.Tensor, sw2: torch.Tensor,
                          f"classes, got {model.num_classes}")
     x4 = _stage4(y, sw2, model, False)
     fused_tail_predict.launches += 1
-    labels = _decode(x4, mask1, model, False)
+    labels = launch_decode(x4, mask1, model, False)
     fused_tail_predict.launches += 1
     return labels
 
@@ -295,7 +300,7 @@ def fused_tail_entropy_score(y: torch.Tensor, sw2: torch.Tensor,
     _require_inputs(y, sw2, mask1)
     x4 = _stage4(y, sw2, model, True)
     fused_tail_entropy_score.launches += 1
-    scores = _decode(x4, mask1, model, True)
+    scores = launch_decode(x4, mask1, model, True)
     fused_tail_entropy_score.launches += 1
     return scores
 

@@ -21,9 +21,12 @@ invisible. The stand-in defines no CUDA vector type but ``float2`` and
 
 :func:`main` runs ICNet's CFF2 + head kernel (both routes, and its GEMM
 alone at both precisions) and the head kernel on seeded inputs of
-``[N, H8, W8]`` eighth-res positions and prints each against its plain
-version: fused8's max |error|, the scores' and the decided labels that
-differ (top-2 logit margin > 1e-3).
+``[N, H8, W8]`` eighth-res positions (``--classes`` of them, 19 by
+default) and prints each against its plain version: fused8's max
+|error|, the scores' and the decided labels that differ (top-2 logit
+margin > 1e-3). ``--front`` runs ICNet's front kernels instead,
+``--decoder`` ENet's decoder score route (``tail.cu`` on its score
+route) on an image of ``8 H8 x 8 W8``.
 """
 
 from __future__ import annotations
@@ -175,6 +178,41 @@ def run_front(n: int, h8: int, w8: int, seed: int, parts) -> None:
                   f"{errs} ({time.time() - t0:.1f} s)")
 
 
+def run_decoder(n: int, h8: int, w8: int, seed: int) -> None:
+    """ENet's decoder score route (``tail5_kernel`` on the score route,
+    csrc/tail.cu ``ssal_tail_decode_score``) on the plain chain's stage-4
+    features and mask of a seeded image of ``n x 8h8 x 8w8``, against
+    ``decoder.decoder_score_plain`` at the Final scales of
+    ``chip_smoke.SCORE_SCALES``."""
+    from chip_smoke import SCORE_SCALES, seeded_state_dict
+    from ..models import ENet
+    from ..ops.kernels import decoder, front, mid, tail
+
+    lib = load(build(("tail",)))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    image = torch.from_numpy(np.random.default_rng(seed).uniform(
+        size=(n, 8 * h8, 8 * w8, 3)).astype(np.float32))
+    for scale in SCORE_SCALES:
+        model = ENet(19)
+        model.load_state_dict(seeded_state_dict(model, 1, scale))
+        model.eval()
+        with torch.no_grad():
+            x1, m1 = front.front_stage1_plain(image, model)
+            y, sw2 = mid.mid_stage23_plain(x1, model)
+            f4 = model.forward_stage4(y, sw2.reshape(n, h8, w8 * 64))
+            want = decoder.decoder_score_plain(f4, m1, model)
+        pack = tail.pack_tail(model)
+        parts = torch.full((n, lib.ssal_tail_partials(h8, w8)), float("nan"))
+        t0 = time.time()
+        kbuild.check(lib.ssal_tail_decode_score(
+            ptr(f4), ptr(m1), ptr(pack), ptr(parts), n, h8, w8, 19, None),
+            "decoder route")
+        got = parts.sum(1) / (64 * h8 * w8)
+        print(f"decoder route (Final x{scale:g}, TF32): scores "
+              f"{[round(v, 6) for v in got.tolist()]}, max|k-p| "
+              f"{(got - want).abs().max():.3e} ({time.time() - t0:.1f} s)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("h8", type=int)
@@ -183,9 +221,14 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--immediate", action="store_true",
                     help="cp.async copies land at once")
+    ap.add_argument("--classes", type=int, default=19,
+                    help="ICNet's classes, for the heads")
     ap.add_argument("--front", nargs="*", default=None, metavar="PART",
                     help="run ICNet's front kernels (these parts of "
                          "icnet_front.PARTS, all by default) on an image of "
+                         "8 H8 x 8 W8 in place of the heads")
+    ap.add_argument("--decoder", action="store_true",
+                    help="run ENet's decoder score route on an image of "
                          "8 H8 x 8 W8 in place of the heads")
     args = ap.parse_args(argv)
     if args.immediate:
@@ -196,6 +239,9 @@ def main(argv=None) -> None:
         run_front(args.n, args.h8, args.w8, args.seed,
                   args.front or list(icnet_front.PARTS))
         return
+    if args.decoder:
+        run_decoder(args.n, args.h8, args.w8, args.seed)
+        return
     from chip_smoke import decided_labels, seeded_state_dict
     from ..models import ICNet
     from ..ops import nn as xops
@@ -203,7 +249,7 @@ def main(argv=None) -> None:
 
     lib = load(build())
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    n, h8, w8, c = args.n, args.h8, args.w8, 19
+    n, h8, w8, c = args.n, args.h8, args.w8, args.classes
     model = ICNet(c)
     model.load_state_dict(seeded_state_dict(model, 1, 5.0, "ICNet"))
     model.eval()

@@ -30,6 +30,7 @@ template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+inline float __expf(float x) { return std::exp(x); }
 #define __global__
 #define __device__
 #define __host__

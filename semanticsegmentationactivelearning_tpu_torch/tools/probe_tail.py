@@ -9,13 +9,15 @@ shape (batch 8, 512x1024), with the seeded ENet-19 of ``chip_smoke.py``.
 checkout of the repo, e.g. the parent commit unpacked with ``git
 archive``, so that two versions are timed on one card by running this
 script once for each. Times the tail predict and tail score kernels as
-their wrappers launch them and the decoder score kernel on the plain
-stage 4's output at the same shape (stage 5 + Final + entropy, the
-tail's second half as one kernel); where the tail module has the
-two-kernel split (``fused_tail_stage4``, ``fused_tail_decode``), each half
-alone too, at each route's precision. Prints the ptxas lines of the tail and decoder kernels, one
-line per time (CUDA events, median of ``--iters`` after a warm-up) and
-a JSON object of them.
+their wrappers launch them, the decoder score route
+(``decoder.fused_decoder_entropy_score``: stage 5 + Final + entropy) on
+the plain stage 4's output and the deconv score kernel (Final +
+entropy) on the plain decoder's, at the same shape; where the tail
+module has the two-kernel split (``fused_tail_stage4``,
+``fused_tail_decode``), each half alone too, at each route's precision.
+Prints the ptxas lines of the tail and decoder kernels, one line per
+time (CUDA events, median of ``--iters`` after a warm-up) and a JSON
+object of them.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def main(argv=None) -> dict:
     from semanticsegmentationactivelearning_tpu_torch.models import (
         get_model)
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
-        build, decoder, front, mid, tail)
+        build, deconv_score, decoder, front, mid, packing, tail)
     from semanticsegmentationactivelearning_tpu_torch.tools import rigs
 
     rigs.require_cuda()
@@ -77,6 +79,8 @@ def main(argv=None) -> dict:
             y, sw2 = mid.mid_stage23_plain(x1, model)
             del x1, image
             f4 = model.forward_stage4(y, sw2.reshape(n, h // 8, w // 8 * 64))
+            pre = model.decode_from_stage4(f4, tail.mask_to_switches(m1))
+            kernel = packing.deconv_hwio(model.Final.deconv).contiguous()
             cases = {
                 "tail_predict": lambda: tail.fused_tail_predict(
                     y, sw2, m1, model),
@@ -84,6 +88,9 @@ def main(argv=None) -> dict:
                     y, sw2, m1, model),
                 "decoder_score": lambda: decoder.fused_decoder_entropy_score(
                     f4, None, model, mask=m1),
+                "deconv_score": lambda:
+                    deconv_score.fused_deconv_entropy_score(
+                        pre, kernel, chip_smoke.CLASSES),
             }
             if split:  # each half at its route's precision
                 x4 = {score: tail.fused_tail_stage4(y, sw2, model, score)
@@ -99,7 +106,7 @@ def main(argv=None) -> dict:
                 ms = rigs.cuda_ms(fn, args.iters)
                 res[f"{label}/{name}"] = ms
                 print(f"{label} (batch {n}, {h}x{w}) {name}: {ms:.3f} ms")
-            del y, sw2, m1, f4, cases
+            del y, sw2, m1, f4, pre, cases
             torch.cuda.empty_cache()
     print(json.dumps(res))
     return res

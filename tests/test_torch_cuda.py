@@ -424,6 +424,35 @@ def test_fused_score_routes_count_their_launches(model, flags, shape,
     assert (got - want).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("shape", sorted({r[1] for r in SCORE_ROUTES}),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_decoder_route_matches_plain_version(model, shape):
+    """The decoder score route (the tail's stage-5 kernel on its score
+    route) on the plain chain's stage-4 features and mask at every
+    SCORE_ROUTES shape (H/4 = 4: one ragged tile): within 1e-4 of
+    decoder_score_plain per image, bit-equal from run to run, and
+    counted by its own wrapper alone."""
+    image = _image(shape, 17)
+    n, h, w, _ = shape
+    with torch.no_grad():
+        x1, m1 = front.front_stage1_plain(image, model)
+        y, sw2 = mid.mid_stage23_plain(x1, model)
+        f4 = model.forward_stage4(y, sw2.reshape(n, h // 8, w // 8 * 64))
+        want = decoder.decoder_score_plain(f4, m1, model)
+        before = (decoder.fused_decoder_entropy_score.launches,
+                  tail.fused_tail_decode.launches,
+                  tail.fused_tail_entropy_score.launches)
+        got = decoder.fused_decoder_entropy_score(f4, None, model, mask=m1)
+        again = decoder.fused_decoder_entropy_score(f4, None, model, mask=m1)
+    torch.cuda.synchronize()
+    assert (decoder.fused_decoder_entropy_score.launches - before[0],
+            tail.fused_tail_decode.launches - before[1],
+            tail.fused_tail_entropy_score.launches - before[2]) == (2, 0, 0)
+    assert got.shape == (n,) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, again)
+
+
 def test_score_step_through_device_prefetch(model):
     score = make_score_step(model, C, "entropy")
     plain = make_score_step(model, C, "entropy", fused=False)
@@ -762,6 +791,64 @@ def test_icnet_serving_through_device_prefetch(icnet):
             torch.from_numpy(src["stack"]).cuda().float() / 255.0)
         assert torch.equal(out.long(), want[:, :60, :90].long())
     assert icnet_head.fused_cff2_head8_predict.launches == launches + 4
+
+
+# (N, H8, W8) of fused8 against the head kernel's 16x8 tiles: ragged on
+# both axes, one tile, a grid under one tile, batch 3 with ragged rows
+HEAD8_SHAPES = [(1, 18, 10), (1, 16, 8), (1, 4, 4), (3, 20, 12)]
+
+
+@pytest.mark.parametrize("shape", HEAD8_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_head8_kernel_matches_plain_versions(icnet, shape):
+    """The head kernel on both routes against its plain versions on a
+    fused8 from the plain CFF2 of seeded inputs: scores within 1e-4 and
+    bit-equal from run to run, labels equal where the plain logits'
+    top-2 margin exceeds 1e-3 (most pixels)."""
+    n, h8, w8 = shape
+    rng = np.random.default_rng(18)
+    f16 = torch.from_numpy((0.5 * rng.normal(
+        size=(n, h8 // 2, w8 // 2, 128))).astype(np.float32)).cuda()
+    f1 = torch.from_numpy((0.5 * np.maximum(rng.normal(
+        size=(n, h8, w8, 64)), 0)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        fused8 = icnet.CFF2(f16, f1)[0]
+        wcls, bcls = icnet.packed("classifier", fused8.device,
+                                  icnet_head.pack_classifier)
+        run = lambda: icnet_head.fused_head8_entropy_score(fused8, wcls,
+                                                           bcls, C)
+        got = run()
+        want = icnet_head.head8_entropy_score_plain(fused8, wcls, bcls, C)
+        labels = icnet_head.fused_head8_predict(fused8, wcls, bcls, C)
+        logits = xops.resize_bilinear(icnet.head_pre_logits(fused8),
+                                      (8 * h8, 8 * w8))
+    assert got.shape == (n,) and ((0.05 < got) & (got < 0.95)).all()
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, run())
+    assert labels.dtype == torch.int8 and labels.shape == (n, 8 * h8, 8 * w8)
+    decided = _decided(logits)
+    # 0.95, not 0.99: the smallest grid has 1024 pixels
+    assert decided.float().mean() > 0.95
+    assert torch.equal(labels.long()[decided], logits.argmax(-1)[decided])
+
+
+def test_head8_kernel_on_the_tensor_cores_without_spills():
+    """ptxas: neither head kernel instance spills; SASS: each has HMMA
+    (tensor-core) instructions, its classifier's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from chip_smoke import hmma_counts, ptxas_spills
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        build)
+    b = build.build()
+    spills = {fn: n for fn, n in ptxas_spills(b.log).items()
+              if "head8_kernel" in fn}
+    assert len(spills) == 2 and not any(spills.values()), spills
+    counts = hmma_counts(b.path)
+    if not counts:
+        pytest.skip("the toolkit has no cuobjdump: SASS not read")
+    hmma = {fn: n for fn, n in counts.items() if "head8_kernel" in fn}
+    assert len(hmma) == 2 and all(hmma.values()), hmma
 
 
 def test_predict_kernels_reject_more_than_127_classes():

@@ -118,9 +118,10 @@ def test_deconv_score_matches_pallas(setup):
 
 
 def test_bridge_carries_every_score_kernel_weight(setup):
-    """The tail and decoder packs read B4_0..B5_1 and Final; the bridge
-    converts each of their parameters and statistics, and the converted
-    Final kernel is the JAX one exactly."""
+    """The tail pack, which the tail and decoder routes read, holds
+    B4_0..B5_1 and Final; the bridge converts each of their parameters
+    and statistics, and the converted Final kernel is the JAX one
+    exactly."""
     _, variables, tm = setup
     converted = bridge.state_dict_from_flax(to_numpy_tree(variables))
     prefixes = ("Bottleneck4_", "Bottleneck5_", "Final.")
@@ -129,11 +130,31 @@ def test_bridge_carries_every_score_kernel_weight(setup):
     np.testing.assert_array_equal(
         packing.deconv_hwio(tm.Final.deconv).numpy(),
         np.asarray(variables["params"]["Final"]["deconv"]["kernel"]))
-    # the packs hold those weights and nothing else
-    stage5 = (64 * 16 + 2 * 16 + 9 * 16 * 8 + 2 * 8 + 8 * 16 + 16
-              + 64 * 16 + 16) + (16 * 4 + 2 * 4 + 9 * 4 * 4 + 2 * 4
-                                 + 4 * 16 + 2 * 16) + 9 * 16 * C
-    assert decoder.pack_decoder(tm).numel() == stage5
+    # the decoder route's kernel (csrc/tail.cu tail5_kernel) reads the
+    # tail pack from record T5_FIRST to its end: B5_0's four records,
+    # B5_1's three and the Final's, each its layer's folded weights, zero
+    # in the padding (the vectors: test_torch_tail_pack.py)
+    layout = tail.tail_layout(C)
+    pack = tail.pack_tail(tm)
+    assert pack.numel() == layout[-1][0] + 9 * 16 * layout[-1][4]
+    b50, b51 = tm.Bottleneck5_0, tm.Bottleneck5_1
+    by_layer = [
+        packing.conv_taps(b50.proj_conv, b50.proj_bn)[0],
+        packing.hwio(b50.res_conv)[0],
+        tail.phase_taps(packing.affine(packing.deconv_hwio(b50.deconv),
+                                       b50.conv_bn, b50.conv_prelu)[0]),
+        packing.conv_taps(b50.exp_conv, b50.exp_bn)[0],
+        packing.conv_taps(b51.proj_conv, b51.proj_bn)[0],
+        packing.conv_taps(b51.conv, b51.conv_bn)[0].reshape(1, 36, 4),
+        packing.conv_taps(b51.exp_conv, b51.exp_bn)[0],
+        tail.phase_taps(packing.deconv_hwio(tm.Final.deconv))]
+    assert len(layout) - tail.T5_FIRST == len(by_layer)
+    for (off, taps, k, n, s, _), want in zip(layout[tail.T5_FIRST:],
+                                             by_layer):
+        w = pack[off:off + taps * k * s].reshape(taps, k, s)
+        t0, k0, n0 = want.shape
+        assert t0 == taps and torch.equal(w[:, :k0, :n0], want)
+        assert not w[:, k0:].any() and not w[:, :, n0:].any()
 
 
 def test_scoring_seams_match_jax(setup):
