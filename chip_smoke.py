@@ -11,8 +11,8 @@ Phases (any failure raises, so the exit code is not 0):
      process per source; prints ptxas's registers and spills and the
      HMMA (tensor-core) instruction count of each front, mid, tail, ICNet
      front, CFF2 + head and head kernel's SASS (each ICNet front, CFF2 +
-     head and head instance must have some, and no ICNet front or head
-     instance may spill).
+     head, head and deconv score instance must have some, and no ICNet
+     front, head or deconv score instance may spill).
   3. kernels: the serving kernels (front, mid, tail predict) against
      their plain PyTorch versions on the same inputs at ENet-19, batch 2,
      1024x2048, with seeded weights (glorot-uniform convs, noised BN
@@ -43,10 +43,12 @@ Phases (any failure raises, so the exit code is not 0):
         kernel (x25), the recipe's (x1) and a sharp one (x1000), so that
         both ends of the entropy are held; each one's time, TFLOP/s of
         least work and bound beside its plain version's time; the decoder
-        route's scores (the tail's stage-5 kernel on its score route)
-        also under PRECISION_GATE with B5_0's, B5_1's and the Final's
-        products rounded; the tail's split, its x4 gates and TFLOP/s as
-        in phase 3.
+        route (the tail's stage-5 kernel on its score route) also under
+        PRECISION_GATE with B5_0's, B5_1's and the Final's products
+        rounded, the deconv kernel (the tail's Final in one TF32 pass) at
+        each scale with the Final's, both on their per-tile sums less
+        each image's mean error (centred_max); the tail's split, its
+        x4 gates and TFLOP/s as in phase 3.
      b. the pool: 6 uint8 batches through device_prefetch, /255 and
         make_score_step(model, 19, "entropy"), with the counters zeroed
         before; the scores against the plain chain's; then one batch
@@ -179,7 +181,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "tail": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2810"),
     "tail_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:2720"),
     "decoder_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:687"),
-    "deconv_score": (f"{_CSRC}/decoder.cu", f"{_PALLAS}:344"),
+    "deconv_score": (f"{_CSRC}/tail.cu", f"{_PALLAS}:344"),
     "icnet_front_stem": (f"{_CSRC}/icnet_front.cu", f"{_PALLAS}:3346"),
     "icnet_front_stem_predict": (f"{_CSRC}/icnet_front.cu",
                                  f"{_PALLAS}:3346"),
@@ -195,11 +197,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                      "tools/probe_mosaic_floor.py:103 and "
                      "tools/probe_front_packing.py:134"),
 }
-# the ICNet front's kernels (csrc/icnet_front.cu) and the head kernel
-# (csrc/icnet_head.cu): phase 2 fails on an instance with no HMMA or with
-# spills (the CFF2 + head kernel's: on one with no HMMA)
+# the ICNet front's kernels (csrc/icnet_front.cu), the head kernel
+# (csrc/icnet_head.cu) and the deconv score kernel (csrc/tail.cu): phase 2
+# fails on an instance with no HMMA or with spills (the CFF2 + head
+# kernel's: on one with no HMMA)
 ICNET_FRONT = ("branch1_kernel", "stem12_kernel", "stem3_kernel")
-NO_SPILLS = ICNET_FRONT + ("head8_kernel",)
+NO_SPILLS = ICNET_FRONT + ("head8_kernel", "deconv_score_kernel")
+DECONV_INSTANCES = 4  # csrc/tail.cu deconv_for: 1-4 n-tiles a chunk
 HMMA_GATED = NO_SPILLS + ("cff2_head_kernel",)
 # phase 8a's classifiers: x5 already decides >99.9% of pixels at the
 # 1e-3 margin (measured on the CPU at 256x512); x25 is ENet's Final scale
@@ -574,14 +578,27 @@ PRECISION_GATE = {"3xTF32": ("TF32", round_tf32, 0.1),
                   "TF32": ("bf16", round_bf16, 0.5)}
 
 
+def max_abs(d: torch.Tensor) -> float:
+    return d.abs().max().item()
+
+
+def centred_max(d: torch.Tensor) -> float:
+    """The max |error| of per-tile sums ``[N, tiles]`` less each image's
+    mean error: without the one shift that rounding a layer's weights
+    adds to every tile alike, which one rounding can cancel by chance
+    and another not (tests/test_torch_{deconv,tail}_pack.py)."""
+    return (d - d.mean(dim=1, keepdim=True)).abs().max().item()
+
+
 def precision_gate(what: str, precision: str, err: float, model, fn,
-                   want, parts=("",)) -> None:
-    """Raise unless ``err`` (a kernel's max |error| against ``want``,
-    ``fn(model)``) is under PRECISION_GATE's share of the error of
-    ``fn`` with the products that the kernel runs at ``precision`` (those
-    inside the submodules ``parts``) rounded one precision below."""
+                   want, parts=("",), measure=max_abs) -> None:
+    """Raise unless ``err`` (a kernel's error against ``want``,
+    ``fn(model)``, by ``measure`` of the difference: max |error| by
+    default) is under PRECISION_GATE's share of the error of ``fn`` with
+    the products that the kernel runs at ``precision`` (those inside the
+    submodules ``parts``) rounded one precision below."""
     lower, rnd, share = PRECISION_GATE[precision]
-    err_lower = (rounded(model, rnd, fn, parts) - want).abs().max().item()
+    err_lower = measure(rounded(model, rnd, fn, parts) - want)
     print(f"{what} ({precision}): max|k-p| {err:.3e}; the plain version "
           f"in {lower} {err_lower:.3e}, the gate {share:g} of it")
     if not err <= share * err_lower:
@@ -805,6 +822,7 @@ def check_score_kernels(seed: int) -> dict:
     """Phase 5a: each score kernel against its plain version on the same
     inputs (the plain chain's activations of one seeded batch), at each
     Final scale of SCORE_SCALES; timed at the first."""
+    from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
         deconv_score, decoder, front, mid, packing, tail)
     rng = np.random.default_rng(seed + 3)
@@ -825,6 +843,7 @@ def check_score_kernels(seed: int) -> dict:
                                                      SW // 8 * 64))
             pre = model.decode_from_stage4(f4, tail.mask_to_switches(m1))
             kernel = packing.deconv_hwio(model.Final.deconv).contiguous()
+            record = tail.pack_final(kernel, CLASSES)
             cases = {
                 "tail_score": (tail.fused_tail_entropy_score,
                                tail.tail_score_plain, (y, sw2, m1, model)),
@@ -832,9 +851,10 @@ def check_score_kernels(seed: int) -> dict:
                     lambda f, m, mdl: decoder.fused_decoder_entropy_score(
                         f, None, mdl, mask=m),
                     decoder.decoder_score_plain, (f4, m1, model)),
-                "deconv_score": (deconv_score.fused_deconv_entropy_score,
-                                 deconv_score.deconv_score_plain,
-                                 (pre, kernel, CLASSES)),
+                "deconv_score": (
+                    lambda p, k, c: deconv_score.fused_deconv_entropy_score(
+                        p, k, c, record=record),
+                    deconv_score.deconv_score_plain, (pre, kernel, CLASSES)),
             }
             for name, (fused, plain, args) in cases.items():
                 got, want = fused(*args), plain(*args)
@@ -850,31 +870,54 @@ def check_score_kernels(seed: int) -> dict:
                     raise AssertionError(f"{name}: not bit-repeatable")
                 r = res.setdefault(name, dict(max_abs_err=0.0))
                 r["max_abs_err"] = max(r["max_abs_err"], err)
+                if name == "deconv_score":
+                    # on the per-tile sums (a per-image mean is one shift
+                    # a rounding of the weights can cancel in by chance)
+                    parts = deconv_score.deconv_partials(
+                        pre, kernel, CLASSES, record=record)
+                    want_t = deconv_score.deconv_partials_plain(
+                        pre, kernel, CLASSES)
+                    precision_gate(
+                        f"deconv tile sums (Final x{scale:g})",
+                        tail.PRECISION["score"],
+                        centred_max(parts - want_t), model,
+                        lambda m: tail.tile_sums(
+                            acquisition.confidence_map(
+                                m.Final(pre), "entropy", CLASSES)),
+                        want_t, ("Final",), centred_max)
+                    del parts, want_t
                 if len(r) == 1:  # time at the first scale only
                     r["ms"] = cuda_ms(lambda: fused(*args))
                     r["plain_ms"] = cuda_ms(lambda: plain(*args))
-                    # the decoder route runs the tail's stage-5 kernel
-                    peak = (TC_PEAK[tail.PRECISION["score"]]
-                            if name in ("tail_score", "decoder_score")
-                            else PEAK_FLOPS)
+                    # every score kernel runs the tail's code on its score
+                    # route
+                    peak = TC_PEAK[tail.PRECISION["score"]]
                     # the decoder route reads f4, mask1 and the tail
-                    # pack's stage-5 records, not the whole model
+                    # pack's stage-5 records, not the whole model; the
+                    # deconv kernel the features and the Final's record
                     read = args
                     if name == "decoder_score":
                         first = tail.tail_layout(CLASSES)[tail.T5_FIRST][0]
                         read = (f4, m1, model.packed(
                             "tail", f4.device, tail.pack_tail)[first:])
+                    if name == "deconv_score":
+                        read = (pre, record)
                     r.update(roofline(read, (got,), count_flops(plain, args)
                                       + softmax_flops(SN, SH, SW, CLASSES),
                                       peak))
                     if name == "tail_score":
                         r.update(tail_split(y, sw2, m1, model, r, score=True))
-                    if name == "decoder_score":
+                    if name == "decoder_score":  # as deconv's
+                        parts = tail.launch_decode(f4, m1, model, True)
+                        want_t = tail.decode_partials_plain(f4, m1, model)
                         precision_gate(
-                            "decoder scores", tail.PRECISION["score"], err,
-                            model, lambda m: decoder.decoder_score_plain(
-                                f4, m1, m), want,
-                            ("Bottleneck5_0", "Bottleneck5_1", "Final"))
+                            "decoder tile sums", tail.PRECISION["score"],
+                            centred_max(parts - want_t), model,
+                            lambda m: tail.decode_partials_plain(
+                                f4, m1, m), want_t,
+                            ("Bottleneck5_0", "Bottleneck5_1", "Final"),
+                            centred_max)
+                        del parts, want_t
         del x1, m1, y, sw2, f4, pre
     for k, r in res.items():
         print(f"{k}: kernel {r['ms']:.3f} ms "
@@ -1790,11 +1833,17 @@ def main(argv=None) -> int:
     head8 = {fn: n for fn, n in spills.items() if "head8_kernel" in fn}
     print(f"  head8_kernel: {len(head8)} instances, spill bytes "
           f"{sorted(head8.values())}")
+    deconv = {fn: n for fn, n in spills.items()
+              if "deconv_score_kernel" in fn}
+    print(f"  deconv_score_kernel: {len(deconv)} instances, spill bytes "
+          f"{sorted(deconv.values())}")
     spilled = {fn: n for fn, n in spills.items()
                if any(k in fn for k in NO_SPILLS) and n}
-    if not b.log or spilled or len(head8) != 2:
-        raise AssertionError(f"ICNet front or head kernels spill (or no "
-                             f"ptxas log): {spilled}, {head8}")
+    if not b.log or spilled or len(head8) != 2 \
+            or len(deconv) != DECONV_INSTANCES:
+        raise AssertionError(f"ICNet front, head or deconv score kernels "
+                             f"spill (or no ptxas log): {spilled}, {head8}, "
+                             f"{deconv}")
 
     # 3. kernels against their plain versions
     state = seeded_state_dict(get_model("ENet", CLASSES), args.seed)

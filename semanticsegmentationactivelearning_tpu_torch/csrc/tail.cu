@@ -50,6 +50,18 @@
 // bit-repeatable. Positions outside the image are zero after every
 // stage: the SAME padding of each conv and the x[-1] = 0 edge of the
 // transposed convs.
+//
+// deconv_score_kernel replaces fused_deconv_entropy_score (:344, body
+// _score_kernel :40): the Final + entropy mean from the pre-Final
+// features [N,H/2,W/2,16] f32 and the Final's GEMM record alone
+// (tail.py pack_final, the bits of the tail pack's FIN). It runs
+// tail5_kernel's Final (final_phases) in one TF32 pass on a tile of
+// DECONV_ROWS x 16 half-res positions staged by cp.async with the row
+// above and the column to the left; the record is staged once a block.
+// What bounds it: the features' 67 MB at batch 8, 512x1024 (0.020 ms at
+// 3.35 TB/s; the Final's 2.9 G multiply-adds over its exact taps take
+// 0.012 ms at the TF32 peak), then the entropy's exp and ~15
+// instructions a pixel and class on the CUDA cores.
 #include "decoder.cuh"
 #include "tc.cuh"
 
@@ -348,6 +360,104 @@ struct Ent {
   }
 };
 
+// The Final 3x3/s2 transposed conv over a tile of TR x T5 half-res
+// positions at (r0, c0), and per pixel its confidence 1 - H(softmax)/
+// log C (kScore) or its first-max label. Per output phase (a, b) one
+// GEMM of [positions x 16*taps] by [16*taps x 8*NTF classes] a chunk of
+// classes, over the phase's exact taps (L, the FIN record, n classes
+// padded); an item is one tile row of one phase. X1 holds the 16
+// channels at stride S16 of the rectangle from (r0 - 1, c0 - 1), P
+// positions a row, zero outside the half-res grid (the x[-1] = 0
+// edge). Pixels outside the H x Wd image are skipped. Score: returns
+// this thread's sum of its pixels' confidences (block_partial adds the
+// block's); predict: writes the labels into lab [2TR][2T5].
+template <bool kScore, int PASSES, int NTF, int TR, int P>
+__device__ __forceinline__ float final_phases(const float* X1,
+                                              const Smem& L, int n, int C,
+                                              int r0, int c0, int H, int Wd,
+                                              int8_t* lab) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float inv_log_c = kScore ? 1.f / logf((float)C) : 0.f;
+  float total = 0.f;
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int chunks = n / (8 * NTF);
+  for (int it = warp; it < 4 * TR; it += nw) {
+    const int ph = it / TR, u = it % TR;
+    const int a = ph >> 1, b = ph & 1, nc = b ? 1 : 2, taps = (a ? 1 : 2) * nc;
+    const float* wph = L.w + kPhaseTap[ph] * 16 * L.ws;
+    Ent ent[2];
+    float best[2] = {0.f, 0.f};
+    int bidx[2] = {-1, -1};
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int n0 = ch * 8 * NTF;
+      float acc[NTF][4];
+#pragma unroll
+      for (int j = 0; j < NTF; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int t = 0; t < taps; ++t) {
+        // the tap's source: row u - t/nc and column g - t%nc of the tile
+        const float* r0p = X1 + ((u + 1 - t / nc) * P + g + 1 - t % nc) * S16;
+        const float* r1p = r0p + 8 * S16;
+        const float* wt = wph + t * 16 * L.ws;
+#pragma unroll
+        for (int k = 0; k < 16; k += 8)
+          mma_kstep<NTF, PASSES>(acc, r0p[k + q], r1p[k + q], r0p[k + q + 4],
+                                 r1p[k + q + 4], wt + k * L.ws, L.ws, n0);
+      }
+#pragma unroll
+      for (int j = 0; j < NTF; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cls = n0 + 8 * j + 2 * q + e;
+            const float l = acc[j][2 * h + e];
+            if (cls >= C) continue;
+            if (kScore)
+              ent[h].add(l);
+            else if (bidx[h] < 0 || l > best[h])
+              best[h] = l, bidx[h] = cls;
+          }
+    }
+    // merge the 4 lanes of each row, then lane q == 0 owns the pixel
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        if (kScore) {
+          const float om = __shfl_xor_sync(0xffffffffu, ent[h].m, sh);
+          const float oz = __shfl_xor_sync(0xffffffffu, ent[h].z, sh);
+          const float os = __shfl_xor_sync(0xffffffffu, ent[h].s, sh);
+          // the lower lane's sums first, so both lanes agree bit for bit
+          if (q & sh) {
+            Ent lo;
+            lo.m = om, lo.z = oz, lo.s = os;
+            lo.merge(ent[h].m, ent[h].z, ent[h].s);
+            ent[h] = lo;
+          } else {
+            ent[h].merge(om, oz, os);
+          }
+        } else {
+          const float ob = __shfl_xor_sync(0xffffffffu, best[h], sh);
+          const int oi = __shfl_xor_sync(0xffffffffu, bidx[h], sh);
+          if (oi >= 0 && (bidx[h] < 0 || ob > best[h] ||
+                          (ob == best[h] && oi < bidx[h])))
+            best[h] = ob, bidx[h] = oi;
+        }
+      }
+      const int v = g + 8 * h;
+      const int R = 2 * (r0 + u) + a, Cc = 2 * (c0 + v) + b;
+      if (q == 0 && R < H && Cc < Wd) {
+        if (kScore)
+          total += 1.f + (ent[h].s / ent[h].z - logf(ent[h].z)) * inv_log_c;
+        else
+          lab[(2 * u + a) * (2 * T5) + 2 * v + b] = (int8_t)bidx[h];
+      }
+    }
+  }
+  return total;
+}
+
 // One block per (image, 16x16 tile of half-res positions at (hr0,
 // hc0)), i.e. 32x32 pixels. Rectangles: Q, quarter res, rows
 // hr0/2-2 .. hr0/2+8 (x4 for the projection and, inner 10x10, the
@@ -540,88 +650,11 @@ __global__ void __launch_bounds__(T5_THREADS, 2)
   }
   __syncthreads();
 
-  // --- Final: per phase (a, b), [256 positions x 16*taps] x [16*taps x
-  // 8*NTF classes] a chunk; an item is one tile row of one phase --------
-  const Smem L = layer(FIN);
-  const float inv_log_c = kScore ? 1.f / logf((float)C) : 0.f;
+  // --- Final ------------------------------------------------------------
   int8_t* const lab = reinterpret_cast<int8_t*>(A);  // [2*T5][2*T5]
-  float total = 0.f;
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int chunks = P.l[FIN - T5_FIRST].n / (8 * NTF);
-  for (int it = warp; it < 4 * T5; it += nw) {
-    const int ph = it / T5, u = it % T5;
-    const int a = ph >> 1, b = ph & 1, nc = b ? 1 : 2, taps = (a ? 1 : 2) * nc;
-    const float* wph = L.w + kPhaseTap[ph] * 16 * L.ws;
-    Ent ent[2];
-    float best[2] = {0.f, 0.f};
-    int bidx[2] = {-1, -1};
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int n0 = ch * 8 * NTF;
-      float acc[NTF][4];
-#pragma unroll
-      for (int j = 0; j < NTF; ++j)
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      for (int t = 0; t < taps; ++t) {
-        const int rr = u + 2 - t / nc;  // H0 row of the tap's source
-        const float* r0 = X + (rr * HS + g + 2 - t % nc) * S16;
-        const float* r1 = r0 + 8 * S16;
-        const float* wt = wph + t * 16 * L.ws;
-#pragma unroll
-        for (int k = 0; k < 16; k += 8)
-          mma_kstep<NTF, PASSES>(acc, r0[k + q], r1[k + q], r0[k + q + 4],
-                                 r1[k + q + 4], wt + k * L.ws, L.ws, n0);
-      }
-#pragma unroll
-      for (int j = 0; j < NTF; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cls = n0 + 8 * j + 2 * q + e;
-            const float l = acc[j][2 * h + e];
-            if (cls >= C) continue;
-            if (kScore)
-              ent[h].add(l);
-            else if (bidx[h] < 0 || l > best[h])
-              best[h] = l, bidx[h] = cls;
-          }
-    }
-    // merge the 4 lanes of each row, then lane q == 0 owns the pixel
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int sh = 1; sh < 4; sh <<= 1) {
-        if (kScore) {
-          const float om = __shfl_xor_sync(0xffffffffu, ent[h].m, sh);
-          const float oz = __shfl_xor_sync(0xffffffffu, ent[h].z, sh);
-          const float os = __shfl_xor_sync(0xffffffffu, ent[h].s, sh);
-          // the lower lane's sums first, so both lanes agree bit for bit
-          if (q & sh) {
-            Ent lo;
-            lo.m = om, lo.z = oz, lo.s = os;
-            lo.merge(ent[h].m, ent[h].z, ent[h].s);
-            ent[h] = lo;
-          } else {
-            ent[h].merge(om, oz, os);
-          }
-        } else {
-          const float ob = __shfl_xor_sync(0xffffffffu, best[h], sh);
-          const int oi = __shfl_xor_sync(0xffffffffu, bidx[h], sh);
-          if (oi >= 0 && (bidx[h] < 0 || ob > best[h] ||
-                          (ob == best[h] && oi < bidx[h])))
-            best[h] = ob, bidx[h] = oi;
-        }
-      }
-      const int v = g + 8 * h;
-      const int R = 2 * (hr0 + u) + a, Cc = 2 * (hc0 + v) + b;
-      if (q == 0 && R < H && Cc < Wd) {
-        if (kScore)
-          total += 1.f + (ent[h].s / ent[h].z - logf(ent[h].z)) * inv_log_c;
-        else
-          lab[(2 * u + a) * (2 * T5) + 2 * v + b] = (int8_t)bidx[h];
-      }
-    }
-  }
+  const float total = final_phases<kScore, PASSES, NTF, T5, HS>(
+      X + (HS + 1) * S16, layer(FIN), P.l[FIN - T5_FIRST].n, C, hr0, hc0, H,
+      Wd, lab);
   if (kScore) {
     block_partial(total, A,
                   partials + ((size_t)n * gridDim.y + blockIdx.y) * gridDim.x +
@@ -639,6 +672,52 @@ __global__ void __launch_bounds__(T5_THREADS, 2)
             *reinterpret_cast<const uint2*>(lab + row * 2 * T5 + c8);
     }
   }
+}
+
+// -- the deconv score kernel ------------------------------------------------
+
+// A block's tile: DECONV_ROWS x T5 half-res positions, one block a
+// tile, at least DECONV_BLOCKS blocks an SM (tools/probe_tail.py
+// --deconv-tile rebuilds this line). 16x16 with 4 blocks an SM (at most
+// 64 registers, 38 KB each at 19 classes) measured fastest against
+// 16x16 and 32x16 with 3 (PERF.md).
+constexpr int DECONV_ROWS = 16, DECONV_BLOCKS = 4;
+constexpr int DX = (DECONV_ROWS + 1) * (T5 + 1);  // staged positions
+constexpr int DECONV_FIXED = DX * S16 + T5_THREADS;  // floats before W
+
+// Block t takes tile t (image, tile row, tile column) and writes
+// partials[t] ([N, tiles an image]). It stages the FIN record (L, its
+// offset 0) and the features over its rectangle from (r0 - 1, c0 - 1),
+// zero outside the half-res grid.
+template <int PASSES, int NTF>
+__global__ void __launch_bounds__(T5_THREADS, DECONV_BLOCKS)
+    deconv_score_kernel(const float* __restrict__ x,
+                        const float* __restrict__ fin, const Layer L,
+                        float* __restrict__ partials, int H2, int W2,
+                        int C) {
+  extern __shared__ __align__(16) float smem[];
+  float* const X = smem;                   // features [DX][S16]
+  float* const slots = X + DX * S16;       // block_partial's
+  float* const W = slots + T5_THREADS;     // the FIN record
+  const int tx = (W2 + T5 - 1) / T5;
+  const int ty = (H2 + DECONV_ROWS - 1) / DECONV_ROWS;
+  const int t = blockIdx.x, n = t / (ty * tx);
+  const int r0 = t / tx % ty * DECONV_ROWS, c0 = t % tx * T5;
+  const float* xn = x + (size_t)n * H2 * W2 * 16;
+  cp_async_floats(W, fin, L.wsize());
+  for (int i = threadIdx.x; i < DX * 4; i += blockDim.x) {
+    const int p = i >> 2, c4 = (i & 3) * 4;
+    const int r = r0 - 1 + p / (T5 + 1), c = c0 - 1 + p % (T5 + 1);
+    float* d = X + p * S16 + c4;
+    if (inside(r, c, H2, W2))
+      cp_async16(d, xn + ((size_t)r * W2 + c) * 16 + c4);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  cp_async_wait_sync();
+  const float v = final_phases<true, PASSES, NTF, DECONV_ROWS, T5 + 1>(
+      X, smem_layer(W, L), L.n, C, r0, c0, 2 * H2, 2 * W2, nullptr);
+  block_partial(v, slots, partials + t);
 }
 
 // -- launches --------------------------------------------------------------
@@ -703,6 +782,40 @@ int launch_stage5(const float* x4, const float* mask1, const float* pack,
   return (int)cudaGetLastError();
 }
 
+// deconv_score_kernel for c classes, in one TF32 pass (the score route)
+auto deconv_for(int c) {
+  switch (final_ntf(c)) {
+    case 1: return deconv_score_kernel<kScorePasses, 1>;
+    case 2: return deconv_score_kernel<kScorePasses, 2>;
+    case 3: return deconv_score_kernel<kScorePasses, 3>;
+    default: return deconv_score_kernel<kScorePasses, 4>;
+  }
+}
+
+int launch_deconv(const float* x, const float* fin, float* partials, int n,
+                  int h2, int w2, int c, cudaStream_t stream) {
+  const Layer L = tail_layout(c).l[FIN];
+  const size_t smem = (size_t)(DECONV_FIXED + L.wsize()) * 4;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const auto k = deconv_for(c);
+  // the bytes each instance may take so far, by device: the attribute is
+  // set once an instance, device and larger size, not on every launch
+  static int allowed[16][4];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int* const a = dev < 16 ? &allowed[dev][final_ntf(c) - 1] : nullptr;
+  if (!a || (int)smem > *a) {
+    const int status = (int)cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (status) return status;
+    if (a) *a = (int)smem;
+  }
+  const int tiles = n * ((h2 + DECONV_ROWS - 1) / DECONV_ROWS) *
+                    ((w2 + T5 - 1) / T5);
+  k<<<tiles, T5_THREADS, smem, stream>>>(x, fin, L, partials, h2, w2, c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace ssal
 
@@ -744,4 +857,19 @@ extern "C" int ssal_tail_decode_score(const float* x4, const float* mask1,
                                       int num_classes, void* stream) {
   return launch_stage5<true>(x4, mask1, pack, nullptr, partials, n, h8, w8,
                              num_classes, (cudaStream_t)stream);
+}
+
+// Partial sums of ssal_deconv_score per image: one per tile.
+extern "C" int ssal_deconv_partials(int h2, int w2) {
+  return ((h2 + DECONV_ROWS - 1) / DECONV_ROWS) * ((w2 + T5 - 1) / T5);
+}
+
+// features [N,H2,W2,16], the Final's record (tail.py pack_final for
+// num_classes) -> partials [N, ssal_deconv_partials(h2, w2)]: sums of the
+// pixels' entropy confidences, one per tile.
+extern "C" int ssal_deconv_score(const float* x, const float* final_record,
+                                 float* partials, int n, int h2, int w2,
+                                 int num_classes, void* stream) {
+  return launch_deconv(x, final_record, partials, n, h2, w2, num_classes,
+                       (cudaStream_t)stream);
 }

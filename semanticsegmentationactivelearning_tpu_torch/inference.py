@@ -182,7 +182,7 @@ def main(args) -> int:
         logger.info("Serving on the CPU (plain chain), as --device cpu asks")
     if device.type == "cuda" and torch.cuda.device_count() > 1:
         logger.info("Serving on one of %d GPUs; multi-GPU serving is not "
-                    "ported yet (ROADMAP.md Queue 1 item 10)",
+                    "ported yet (ROADMAP.md Queue 1 item 9)",
                     torch.cuda.device_count())
     predict = make_predict_fn(model, torch.as_tensor(np.asarray(lut)),
                               height, width, rec_loader.channels, device,

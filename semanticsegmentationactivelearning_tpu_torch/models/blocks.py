@@ -9,7 +9,7 @@ permuted NCHW view. Parameter names mirror the flax tree
 The blocks are the eval forward: batch norm always uses its running
 statistics and spatial dropout is never applied. Train-mode batch
 statistics and dropout belong to the training slice (ROADMAP Queue 1
-item 5). The TPU-only pieces of the JAX blocks (the ``conv_impl``
+item 2). The TPU-only pieces of the JAX blocks (the ``conv_impl``
 shifted-matmul lowering, bf16 compute and phase-domain logits) are
 not ported.
 """

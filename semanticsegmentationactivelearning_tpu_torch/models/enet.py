@@ -24,7 +24,7 @@ kernels of ``ops/kernels``; :meth:`ENet.fused_score` routes the
 acquisition score through the front, mid and one of the three score
 kernels. The multiscale loss heads and ``return_embedding`` belong to
 the training and core-set slices and are not ported yet (ROADMAP Queue
-1 items 5 and 9).
+1 items 2 and 8).
 """
 
 from __future__ import annotations
@@ -170,7 +170,9 @@ class ENet(PackedModel):
         decoder score kernel on the front's mask. Other inputs take the
         plain encoder to stage 4 and the decoder score kernel on the
         switches. Entropy without ``fuse_decoder``: the plain forward to
-        the pre-logits and the deconv score kernel. Other measures:
+        the pre-logits and the deconv score kernel (the tail's Final on
+        the tensor cores, on the Final's GEMM record, packed once a
+        model and device). Other measures:
         ``acquisition.chunked_deconv_mean_confidence``. H and W must be
         multiples of 8."""
         # imported here: ops/kernels/mid.py imports this module
@@ -204,7 +206,11 @@ class ENet(PackedModel):
         kernel = self.packed("final", image.device,
                              lambda m: packing.deconv_hwio(m.Final.deconv))
         if measure == "entropy":
+            record = self.packed("final_record", image.device,
+                                 lambda m: tail.pack_final(
+                                     packing.deconv_hwio(m.Final.deconv),
+                                     m.num_classes))
             return deconv_score.fused_deconv_entropy_score(
-                features, kernel, self.num_classes)
+                features, kernel, self.num_classes, record=record)
         return acquisition.chunked_deconv_mean_confidence(
             features, kernel, measure, self.num_classes)

@@ -19,7 +19,7 @@ CFF2 + head and head); the other measures take
 :func:`chunked_deconv_mean_confidence` (ENet) and
 :func:`chunked_upsample_mean_confidence` (ICNet), as the JAX package
 leaves them to XLA. The Monte-Carlo measure (BALD) is not ported yet
-(ROADMAP.md Queue 1 item 9).
+(ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 chains and their plain PyTorch versions: ``front`` (image -> stage 1),
 ``mid`` (stages 2-3), ``tail`` (stages 4-5 + Final + argmax or entropy
 mean), ``decoder`` (stage 5 + Final + entropy mean) and
-``deconv_score`` (Final + entropy mean) for ENet; ``icnet_front``
+``deconv_score`` (Final + entropy mean; all three on ``csrc/tail.cu``)
+for ENet; ``icnet_front``
 (Branch1 + the half-res image, or + the stem's front) and
 ``icnet_head`` (classifier + 8x upsample, optionally after CFF2, ending
 in an argmax or an entropy mean) for ICNet. ``build`` compiles ``csrc/``

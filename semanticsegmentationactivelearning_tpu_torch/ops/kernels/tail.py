@@ -35,6 +35,10 @@ LAUNCHES_PER_CALL = 2
 # the scores within 2e-5 of fp32's (the gate is 1e-4), measured on the
 # H100 by chip_smoke.py (PERF.md).
 PRECISION = {"predict": "3xTF32", "score": "TF32"}
+# half-res positions a side of the score kernels' tile (csrc/tail.cu T5;
+# deconv_score_kernel's DECONV_ROWS x T5): 32x32 pixels, one partial sum
+# of confidences each
+T5 = 16
 
 # The taps (kh, kw) of the JAX transposed-conv kernel k[kh][kw][in][out]
 # that each output phase (2a + b) uses, in the kernels' order: row
@@ -83,6 +87,20 @@ def phase_taps(k: torch.Tensor) -> torch.Tensor:
                         for kh, kw in taps])
 
 
+def final_size(c: int) -> int:
+    """Floats of the Final's record for ``c`` classes (:func:`pack_final`,
+    the last record of :func:`tail_layout`)."""
+    return 9 * 16 * bstride(final_cp(c))
+
+
+def pack_final(kernel: torch.Tensor, c: int) -> torch.Tensor:
+    """The Final's GEMM record (``csrc/tail.cu`` FIN) of its flax kernel
+    ``[3, 3, 16, C]``: the nine taps by phase, ``[9, 16,
+    bstride(final_cp(c))]`` flat, on the kernel's device. The tail pack
+    holds the same bits; the deconv score kernel reads it alone."""
+    return packing.flat(gemm_record(phase_taps(kernel), 16, final_cp(c)))
+
+
 def _upsample(blk, fo: int) -> List[torch.Tensor]:
     """A ``BottleneckUpsample``'s four records: projection, residual 1x1
     conv, transposed conv by phase, expand (+ the residual PReLU)."""
@@ -121,8 +139,8 @@ def pack_tail(model) -> torch.Tensor:
         parts += _bottleneck(blk, 16, 16)
     parts += _upsample(model.Bottleneck5_0, 8)
     parts += _bottleneck(model.Bottleneck5_1, 40, 8)
-    fin = phase_taps(packing.deconv_hwio(model.Final.deconv))
-    parts += gemm_record(fin, 16, final_cp(model.num_classes))
+    parts.append(pack_final(packing.deconv_hwio(model.Final.deconv),
+                            model.num_classes))
     return packing.flat(parts)
 
 
@@ -215,12 +233,39 @@ def decode_plain(x4: torch.Tensor, mask1: torch.Tensor, model,
     return logits.argmax(dim=-1).to(torch.int8)
 
 
+def tile_sums(conf: torch.Tensor) -> torch.Tensor:
+    """Per-pixel confidences ``[N, H, W]`` summed over the score kernels'
+    tiles (:data:`T5`), ``[N, tiles]`` with the tiles row by row, as the
+    kernels write their partial sums (partial tiles at the bottom and
+    right sum the pixels they hold)."""
+    t = 2 * T5
+    n, h, w = conf.shape
+    conf = torch.nn.functional.pad(conf, (0, -w % t, 0, -h % t))
+    return conf.reshape(n, conf.shape[1] // t, t, conf.shape[2] // t,
+                        t).sum((2, 4)).reshape(n, -1)
+
+
+def decode_partials_plain(x4: torch.Tensor, mask1: torch.Tensor,
+                          model) -> torch.Tensor:
+    """The plain version of :func:`launch_decode`'s partial sums."""
+    logits = model.Final(model.decode_from_stage4(x4,
+                                                  mask_to_switches(mask1)))
+    return tile_sums(acquisition.confidence_map(logits, "entropy",
+                                                model.num_classes))
+
+
+def partials_mean(partials: torch.Tensor, pixels: int) -> torch.Tensor:
+    """Per-image scores from a score kernel's partial sums: the JAX
+    wrappers' ``sum(partial_sums, 1) / pixels``."""
+    return partials.sum(dim=1) / float(pixels)
+
+
 def launch_decode(x4, mask1, model, score: bool) -> torch.Tensor:
     """Launch ``tail5_kernel`` on CUDA tensors, uncounted (the callers
     count theirs: :func:`fused_tail_decode`, the tail's wrappers and
-    ``decoder.fused_decoder_entropy_score``). With ``score`` the kernel
-    writes one partial sum per block; their sum over the pixel count is
-    the JAX wrapper's ``sum(partial_sums, 1) / pixels``."""
+    ``decoder.fused_decoder_entropy_score``). With ``score`` it returns
+    the kernel's partial sums of confidences, one a tile (as
+    :func:`tile_sums`), for :func:`partials_mean`."""
     build.require(x4, "x4", torch.float32, (None, None, None, 64))
     n, hq, wq, _ = x4.shape
     build.require(mask1, "mask1", torch.float32, (n, hq, wq, 64))
@@ -247,8 +292,6 @@ def launch_decode(x4, mask1, model, score: bool) -> torch.Tensor:
                 build.ptr(x4), build.ptr(mask1), build.ptr(pack),
                 build.ptr(out), n, h8, w8, c, build.stream_of(x4))
     build.check(status, "tail stage-5 kernel")
-    if score:
-        return out.sum(dim=1) / float(64 * h8 * w8)
     return out
 
 
@@ -263,7 +306,8 @@ def fused_tail_decode(x4: torch.Tensor, mask1: torch.Tensor, model,
         return decode_plain(x4, mask1, model, score)
     out = launch_decode(x4, mask1, model, score)
     fused_tail_decode.launches += 1
-    return out
+    return partials_mean(out, 16 * x4.shape[1] * x4.shape[2]) if score \
+        else out
 
 
 fused_tail_decode.launches = 0
@@ -300,9 +344,9 @@ def fused_tail_entropy_score(y: torch.Tensor, sw2: torch.Tensor,
     _require_inputs(y, sw2, mask1)
     x4 = _stage4(y, sw2, model, True)
     fused_tail_entropy_score.launches += 1
-    scores = launch_decode(x4, mask1, model, True)
+    parts = launch_decode(x4, mask1, model, True)
     fused_tail_entropy_score.launches += 1
-    return scores
+    return partials_mean(parts, 16 * x4.shape[1] * x4.shape[2])
 
 
 fused_tail_entropy_score.launches = 0

@@ -14,6 +14,8 @@ device:
   (``tools/probe_front_packing.py``).
 
 Beside them: the probes of the redesigned kernels (``probe_front``,
-``probe_mid``, ``probe_tail``, ``probe_cff2``), and ``cpu_emu``, which
-runs ``csrc/`` kernels on the CPU before their first run on a card.
+``probe_mid``, ``probe_tail``, ``probe_cff2``, ``probe_icnet_front``,
+``probe_head8``; ``tile_builds`` rebuilds a source with another tile for
+them), and ``cpu_emu``, which runs ``csrc/`` kernels on the CPU before
+their first run on a card.
 """

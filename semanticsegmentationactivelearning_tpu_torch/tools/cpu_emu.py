@@ -26,7 +26,9 @@ default) and prints each against its plain version: fused8's max
 |error|, the scores' and the decided labels that differ (top-2 logit
 margin > 1e-3). ``--front`` runs ICNet's front kernels instead,
 ``--decoder`` ENet's decoder score route (``tail.cu`` on its score
-route) on an image of ``8 H8 x 8 W8``.
+route) on an image of ``8 H8 x 8 W8``, ``--deconv`` ENet's deconv score
+kernel (``tail.cu``) on seeded pre-Final features ``[N, H8, W8, 16]``
+at 5, 19 and 30 classes.
 """
 
 from __future__ import annotations
@@ -213,6 +215,43 @@ def run_decoder(n: int, h8: int, w8: int, seed: int) -> None:
               f"{(got - want).abs().max():.3e} ({time.time() - t0:.1f} s)")
 
 
+def run_deconv(n: int, h2: int, w2: int, seed: int) -> None:
+    """ENet's deconv score kernel (csrc/tail.cu ``ssal_deconv_score``)
+    on seeded features ``[n, h2, w2, 16]`` against
+    ``deconv_score.deconv_score_plain`` (the scores) and
+    ``deconv_partials_plain`` (the per-tile sums), at 5, 19 and 30
+    classes (one to four n-tiles a chunk) and each Final scale of
+    ``chip_smoke.SCORE_SCALES``."""
+    from chip_smoke import SCORE_SCALES, seeded_state_dict
+    from ..models import ENet
+    from ..ops.kernels import deconv_score, packing, tail
+
+    lib = load(build(("tail",)))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    x = torch.from_numpy(np.maximum(np.random.default_rng(seed).normal(
+        size=(n, h2, w2, 16)), 0).astype(np.float32))
+    for c in (5, 19, 30):
+        for scale in SCORE_SCALES:
+            model = ENet(c)
+            model.load_state_dict(seeded_state_dict(model, 1, scale))
+            kernel = packing.deconv_hwio(model.Final.deconv).contiguous()
+            want = deconv_score.deconv_score_plain(x, kernel, c)
+            record = tail.pack_final(kernel, c)
+            parts = torch.full((n, lib.ssal_deconv_partials(h2, w2)),
+                               float("nan"))
+            t0 = time.time()
+            kbuild.check(lib.ssal_deconv_score(
+                ptr(x), ptr(record), ptr(parts), n, h2, w2, c, None),
+                "deconv score")
+            got = parts.sum(1) / (4 * h2 * w2)
+            tiles = (parts - deconv_score.deconv_partials_plain(
+                x, kernel, c)).abs().max()
+            print(f"deconv ({c} classes, Final x{scale:g}, TF32): scores "
+                  f"{[round(v, 6) for v in got.tolist()]}, max|k-p| "
+                  f"{(got - want).abs().max():.3e}, tile sums {tiles:.3e} "
+                  f"({time.time() - t0:.1f} s)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("h8", type=int)
@@ -230,6 +269,9 @@ def main(argv=None) -> None:
     ap.add_argument("--decoder", action="store_true",
                     help="run ENet's decoder score route on an image of "
                          "8 H8 x 8 W8 in place of the heads")
+    ap.add_argument("--deconv", action="store_true",
+                    help="run ENet's deconv score kernel on features of "
+                         "H8 x W8 half-res positions in place of the heads")
     args = ap.parse_args(argv)
     if args.immediate:
         os.environ["EMU_IMMEDIATE"] = "1"
@@ -241,6 +283,9 @@ def main(argv=None) -> None:
         return
     if args.decoder:
         run_decoder(args.n, args.h8, args.w8, args.seed)
+        return
+    if args.deconv:
+        run_deconv(args.n, args.h8, args.w8, args.seed)
         return
     from chip_smoke import decided_labels, seeded_state_dict
     from ..models import ICNet

@@ -27,6 +27,7 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaGetLastError() { return 0; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }

@@ -26,11 +26,9 @@ JSON object of them.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import re
-import shutil
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -42,52 +40,6 @@ TILE_LINE = (r"constexpr int HR = \d+, HC = \d+, HEAD8_THREADS = \d+, "
              r"HEAD8_BLOCKS = \d+;")
 HEAD8_ENTRIES = ("ssal_head8_partials", "ssal_head8_score",
                  "ssal_head8_predict")
-
-
-def ptxas_lines(log: str, key: str):
-    """ptxas's entry, register and spill lines of the kernels whose
-    mangled name holds ``key``."""
-    lines = log.splitlines()
-    for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and key in ln:
-            for nxt in lines[i:i + 4]:
-                if "registers" in nxt or "spill" in nxt or nxt is ln:
-                    yield nxt.strip()
-
-
-def tile_libraries(build, tiles, out: Path) -> dict:
-    """tile -> (ctypes library, nvcc log) of ``icnet_head.cu`` built with
-    each tile, one nvcc a tile, all started together."""
-    procs = {}
-    for tile in tiles:
-        r, c, t, b = (int(v) for v in tile.split("x"))
-        src = out / tile / "csrc"
-        shutil.rmtree(src.parent, ignore_errors=True)
-        shutil.copytree(build.CSRC, src)
-        cu = src / "icnet_head.cu"
-        text, k = re.subn(TILE_LINE, f"constexpr int HR = {r}, HC = {c}, "
-                          f"HEAD8_THREADS = {t}, HEAD8_BLOCKS = {b};",
-                          cu.read_text())
-        if k != 1:
-            raise RuntimeError(f"{cu}: no tile line to replace")
-        cu.write_text(text)
-        lib = src.parent / "libhead8.so"
-        procs[tile] = (lib, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for tile, (path, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on tile {tile}:\n{log}")
-        lib = ctypes.CDLL(str(path))
-        for name in HEAD8_ENTRIES:
-            args, res = build.SIGNATURES[name]
-            getattr(lib, name).argtypes = args
-            getattr(lib, name).restype = res
-        libs[tile] = (lib, log)
-    return libs
 
 
 def launch(lib, build, route, f8, wcls, bcls, c):
@@ -137,16 +89,22 @@ def main(argv=None) -> dict:
     b = build.build()
     build.library()
     print(f"root {root}: build {b.seconds:.1f} s")
-    for ln in ptxas_lines(b.log, "head8"):
+    # this checkout's tile builds, whichever checkout --root names
+    tb = runpy.run_path(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tile_builds.py"))
+    for ln in tb["ptxas_lines"](b.log, ("head8",)):
         print(f"  {ln}")
     for fn, count in chip_smoke.hmma_counts(b.path).items():
         if "head8" in fn:
             print(f"  SASS: {count} HMMA instructions in {fn}")
-    libs = tile_libraries(build, args.tile,
-                          Path(root) / "build" / "probe_head8")
+    libs = tb["tile_libraries"](
+        build, "icnet_head.cu", TILE_LINE,
+        lambda tile: "constexpr int HR = {}, HC = {}, HEAD8_THREADS = {}, "
+        "HEAD8_BLOCKS = {};".format(*tile.split("x")), HEAD8_ENTRIES,
+        args.tile, Path(root) / "build" / "probe_head8")
     for tile, (_, log) in libs.items():
         print(f"tile {tile}:")
-        for ln in ptxas_lines(log, "head8"):
+        for ln in tb["ptxas_lines"](log, ("head8",)):
             print(f"  {ln}")
     model = chip_smoke.score_model(args.seed, chip_smoke.ICNET_CLS_SCALE,
                                    "ICNet")

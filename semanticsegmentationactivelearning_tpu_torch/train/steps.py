@@ -3,11 +3,11 @@
 
 So far the scoring step only: :func:`make_score_step` is the AL loop's
 pool-scoring hot path (reference active_learning.py:697-698). The
-train, eval, predict and embed steps belong to the training slice
-(ROADMAP.md Queue 1 item 5). PyTorch runs eagerly, so the step is a
-plain closure; the JAX package's grouped dispatch (``lax.map`` over
-micro-batches) and its mesh paths are not ported (ROADMAP.md "Not to
-port", Queue 1 items 10 and 11).
+train, eval and predict steps belong to the training slice (ROADMAP.md
+Queue 1 item 4), the embed step to item 8. PyTorch runs eagerly, so the
+step is a plain closure; the JAX package's grouped dispatch
+(``lax.map`` over micro-batches) and its mesh paths are not ported
+(ROADMAP.md "Not to port", Queue 1 items 9 and 10).
 """
 
 from __future__ import annotations

@@ -453,6 +453,69 @@ def test_decoder_route_matches_plain_version(model, shape):
     assert torch.equal(got, again)
 
 
+# (N, H2, W2) of pre-Final features against the deconv kernel's tiles
+# of 16x16 half-res positions: ragged on both axes, one tile, a grid
+# under one tile, batch 3 with ragged rows, more ragged rows of tiles
+DECONV_SHAPES = [(2, 20, 36), (1, 16, 16), (1, 8, 20), (3, 33, 17),
+                 (1, 70, 40)]
+
+
+@pytest.mark.parametrize("classes", [5, 19, 30])
+@pytest.mark.parametrize("shape", DECONV_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_deconv_kernel_matches_plain_version(tail_models, shape, classes):
+    """The deconv score kernel (the tail's Final in one TF32 pass, one
+    to four n-tiles a chunk of classes) on seeded features: within 1e-4
+    of deconv_score_plain per image, bit-equal from run to run and with
+    the record passed or packed by the wrapper, one launch a call; its
+    per-tile sums (deconv_partials) within 1e-4 a pixel of
+    deconv_partials_plain."""
+    if classes not in tail_models:
+        tail_models[classes] = _enet(classes)
+    kernel = packing.deconv_hwio(
+        tail_models[classes].Final.deconv).contiguous()
+    rng = np.random.default_rng(19)
+    pre = torch.from_numpy(np.maximum(rng.normal(size=(*shape, 16)), 0)
+                           .astype(np.float32)).cuda()
+    record = tail.pack_final(kernel, classes)
+    before = deconv_score.fused_deconv_entropy_score.launches
+    with torch.no_grad():
+        got = deconv_score.fused_deconv_entropy_score(pre, kernel, classes)
+        again = deconv_score.fused_deconv_entropy_score(pre, kernel, classes,
+                                                        record=record)
+        want = deconv_score.deconv_score_plain(pre, kernel, classes)
+        parts = deconv_score.deconv_partials(pre, kernel, classes,
+                                             record=record)
+        want_t = deconv_score.deconv_partials_plain(pre, kernel, classes)
+    assert deconv_score.fused_deconv_entropy_score.launches - before == 3
+    assert got.dtype == torch.float32 and got.shape == (shape[0],)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, again)
+    assert parts.shape == want_t.shape
+    assert (parts - want_t).abs().max().item() <= 1e-4 * 32 * 32
+
+
+def test_deconv_kernel_on_the_tensor_cores_without_spills():
+    """ptxas: no deconv score kernel instance (1-4 n-tiles a chunk)
+    spills; SASS: each has HMMA (tensor-core) instructions, its
+    Final's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from chip_smoke import DECONV_INSTANCES, hmma_counts, ptxas_spills
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        build)
+    b = build.build()
+    spills = {fn: n for fn, n in ptxas_spills(b.log).items()
+              if "deconv_score_kernel" in fn}
+    assert len(spills) == DECONV_INSTANCES and not any(spills.values()), \
+        spills
+    counts = hmma_counts(b.path)
+    if not counts:
+        pytest.skip("the toolkit has no cuobjdump: SASS not read")
+    hmma = {fn: n for fn, n in counts.items() if "deconv_score_kernel" in fn}
+    assert len(hmma) == DECONV_INSTANCES and all(hmma.values()), hmma
+
+
 def test_score_step_through_device_prefetch(model):
     score = make_score_step(model, C, "entropy")
     plain = make_score_step(model, C, "entropy", fused=False)

@@ -344,3 +344,41 @@ def test_x4_precision_gate_separates_tf32_from_bf16(seed):
                            ("bf16", rnd))}
     assert 0 < err["TF32"] < share * err["bf16"]
     assert err["TF32"] < 1e-3 * f4.abs().max()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_decoder_precision_gate_on_tile_sums(seed):
+    """The premise of chip_smoke's PRECISION_GATE for the decoder route
+    (the tail's stage-5 kernel on the plain stage 4's output): on the
+    smoke's seeded ENet-19 (at 128x256, 64 tiles), the per-tile sums of
+    confidences less each image's mean error (centred_max) with B5_0's,
+    B5_1's and the Final's products in TF32 read under half the error of
+    the same in bf16. On the scores themselves TF32's error comes out
+    above bf16's at seeds 1 and 2: a mean over many pixels is mostly
+    one shift from rounding the weights, which a rounding can cancel by
+    chance. The partials' mean is the plain score."""
+    import chip_smoke
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        decoder, mid)
+    m = ENet(19)
+    m.load_state_dict(chip_smoke.seeded_state_dict(m, seed))
+    m.eval()
+    rng = np.random.default_rng(seed + 3)
+    image = torch.from_numpy(rng.integers(0, 256, (2, 128, 256, 3),
+                                          dtype=np.uint8)).float() / 255
+    with torch.no_grad():
+        x1, m1 = front.front_stage1_plain(image, m)
+        y, sw2 = mid.mid_stage23_plain(x1, m)
+        f4 = m.forward_stage4(y, sw2.reshape(2, 16, 32 * 64))
+        want = tail.decode_partials_plain(f4, m1, m)
+        score = decoder.decoder_score_plain(f4, m1, m)
+    assert want.shape == (2, 4 * 8)
+    torch.testing.assert_close(tail.partials_mean(want, 128 * 256), score,
+                               rtol=0, atol=1e-5)
+    lower, rnd, share = chip_smoke.PRECISION_GATE["TF32"]
+    assert lower == "bf16" and share == 0.5
+    err = {name: chip_smoke.centred_max(chip_smoke.rounded(
+        m, r, lambda mm: tail.decode_partials_plain(f4, m1, mm),
+        ("Bottleneck5_0", "Bottleneck5_1", "Final")) - want)
+        for name, r in (("TF32", chip_smoke.round_tf32), ("bf16", rnd))}
+    assert 0 < err["TF32"] < share * err["bf16"], err
