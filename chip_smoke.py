@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's ENet and ICNet serving and
-pool-scoring paths and of its measurement rigs on one NVIDIA GPU.
+pool-scoring paths, of ENet's training and of its measurement rigs on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -115,6 +116,35 @@ Phases (any failure raises, so the exit code is not 0):
      each rig kernel against its plain version on the scripts' inputs:
      every sum within 1e-5 (fp32) or 1e-2 (bf16) of the sum of the
      magnitudes it adds up.
+  10. training, ENet-19 at 512x1024 (the confs' network.input), plain
+     PyTorch with cuDNN (no kernel of its own):
+     a. one train step at batch 2 with SGD and every dropout rate 0,
+        from the same seeded weights and uint8 batch, on the card and on
+        the CPU in fp32 and in float64, for conf/enet_cityscapes_pretrain.json
+        (multiscale) and conf/enet_cityscapes_active_learning.json
+        (log-inverse 1.02); on the card once at torch's default
+        precision (cuDNN convs in TF32, the CLI's) and once with TF32
+        off. The loss (relative), every parameter's gradient (relative
+        L2 a tensor, the largest) and the new BN running statistics
+        (the largest difference over the largest magnitude) against
+        each CPU step, under the conf's and precision's bounds in
+        TRAIN_BOUNDS;
+     b. speed at batch 8 (both confs' batch_size) with the confs'
+        dropout, Adam and loss, at the default precision: augment_batch
+        on a uint8 1024x2048 stack on the card, then train_step; median
+        of TRAIN_TIMED steps after TRAIN_WARMUP, CUDA events; ms/step and
+        images/s; then LEARN_STEPS steps on one fixed batch from the
+        seeded weights, after which the pretrain conf's loss must be
+        under half its first value;
+     c. the phase-6 breakdown of 5 train steps of each conf;
+     d. the train CLI in child processes, as phase 4's CLI: 16 labelled
+        512x1024 records (colour blocks that give the class) and 4
+        validation records, 2 epochs from the pretrain conf, then a
+        resume for a third (it must start at epoch 3 and step 4); the
+        records of metrics.jsonl (splits and keys), the numbered
+        checkpoints, and epoch 2's training loss under epoch 1's; then
+        the inference CLI serves the trained checkpoint through the
+        kernel chain.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}. Neither this process nor its child
 processes (the record writer and the CLI) import JAX or the JAX package;
@@ -218,6 +248,37 @@ LEAK_CHECK = (
     f"              if m.split('.')[0] in {JAX_SIDE!r})\n"
     "if _bad:\n"
     "    raise SystemExit(f'imported JAX or the JAX package: {_bad}')\n")
+
+
+# phase 10: the training slice (ENet-19, the confs' 512x1024 input)
+TRAIN_CONFS = {"pretrain": "conf/enet_cityscapes_pretrain.json",
+               "al": "conf/enet_cityscapes_active_learning.json"}
+TN, TB, TH, TW = 2, 8, 512, 1024   # 10a's batch, 10b's batch, the input
+TRAIN_WARMUP, TRAIN_TIMED, LEARN_STEPS = 3, 10, 20
+DEV = "cuda"   # phase 10's device
+# 10a's bounds on the card's step against the CPU's (in fp32 and in
+# float64 alike), by conf and the card's precision: the loss (relative),
+# the largest relative L2 error of a parameter's gradient, the BN
+# statistics' largest difference over their largest magnitude. Set from
+# their first measurement on the card (PERF.md §2): fp32 read at most
+# 1.1e-7, 4.8e-3 and 1.3e-6, TF32 at least 1.1e-5, 7.5e-2 and 3.9e-4;
+# each fp32 bound sits at least 10x under the TF32 run's error, each
+# bound about 3x over its own run's.
+TRAIN_BOUNDS = {
+    "pretrain": {"default": {"loss": 4e-5, "grad": 0.25, "stats": 1.5e-3},
+                 "fp32": {"loss": 1e-6, "grad": 5e-3, "stats": 1e-5}},
+    "al": {"default": {"loss": 1e-4, "grad": 0.7, "stats": 1.5e-3},
+           "fp32": {"loss": 1e-6, "grad": 1.5e-2, "stats": 1e-5}}}
+# the keys of each metrics.jsonl record of the train CLI (the JAX CLI's)
+TRAIN_RECORD_KEYS = {
+    "train_iter": {"split", "step", "epoch", "loss", "cost",
+                   "learning_rate", "wall_time"},
+    "train": {"split", "epoch", "step", "loss", "cost", "learning_rate",
+              "mean_iou", "pixel_accuracy", "confusion", "wall_time"},
+    "val": {"split", "epoch", "step", "mean_iou", "pixel_accuracy",
+            "class_iou", "confusion", "wall_time"},
+    "final_val": {"split", "epoch", "step", "mean_iou", "pixel_accuracy",
+                  "class_iou", "confusion", "wall_time"}}
 
 
 def seeded_state_dict(model, seed: int, final_scale: float = FINAL_SCALE,
@@ -1788,6 +1849,309 @@ def run_rigs(seed: int):
     return res, launches
 
 
+BLOCK_CLASSES = 5   # the classes present in phase 10's images
+
+
+def block_stack(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """uint8 ``[n, h, w, 4]``: an image whose 8x8 grid of blocks each
+    have their class's colour (with noise) and the label plane with the
+    classes (0 to BLOCK_CLASSES - 1 of the model's 19, as the JAX CLI
+    test's records) and an ignored (255) top band."""
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(0, 256, (BLOCK_CLASSES, 3))
+    idx = rng.integers(0, BLOCK_CLASSES, (n, 8, 8))
+    label = np.kron(idx, np.ones((1, h // 8, w // 8), np.int64))
+    image = np.clip(colors[label] + rng.integers(-20, 20, (n, h, w, 3)),
+                    0, 255)
+    label[:, :h // 64] = 255
+    return np.concatenate([image, label[..., None]], -1).astype(np.uint8)
+
+
+def set_precision(precision: str) -> None:
+    """"default": torch's defaults (cuDNN convs in TF32, matmuls in fp32),
+    what the train CLI runs; "fp32": TF32 off, as phases 1-9 run."""
+    torch.backends.cudnn.allow_tf32 = precision == "default"
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def train_setup(conf: str, device, check: bool, seed: int):
+    """(state, train_step, hyperparams) for ENet-19 on ``device`` with
+    the seeded weights; ``check``: SGD and dropout rates 0 (phase 10a),
+    else the conf's optimizer and rates."""
+    from semanticsegmentationactivelearning_tpu_torch.models import (
+        get_model)
+    from semanticsegmentationactivelearning_tpu_torch.train import (
+        config, optim, steps)
+    hp = copy.deepcopy(config.load_params(conf)["hyperparams"])
+    if check:
+        hp["optimizer"] = {"type": "SGD"}
+        hp["dropout_rates"] = [0.0] * 5
+    model = get_model("ENet", CLASSES, drop_rates=hp["dropout_rates"],
+                      multiscale_heads=hp["softmax"]["multiscale"])
+    model = model.to(device)
+    opt, sched = optim.make_optimizer(model.parameters(), hp)
+    state = steps.create_train_state(model, opt, sched, seed=seed)
+    return state, steps.make_train_step(model, CLASSES, hp), hp
+
+
+def fixed_batch(stack: np.ndarray, device, dtype=torch.float32) -> dict:
+    """The train batch of ``stack`` through augment_batch's core with
+    fixed draws (no crop offset, the second image flipped, scale 1.1),
+    its floats in ``dtype``."""
+    from semanticsegmentationactivelearning_tpu_torch.data import pipeline
+    n = stack.shape[0]
+    draws = (torch.zeros(n, dtype=torch.long), torch.zeros(n, dtype=torch.long),
+             torch.arange(n) % 2 == 1, torch.full((n, 1, 1, 3), 1.1))
+    _, image, label, mask = pipeline.crop_flip_scale(
+        torch.from_numpy(stack).to(device), *[d.to(device) for d in draws],
+        crop_hw=stack.shape[1:3])
+    return {"image": image.to(dtype), "label": label, "mask": mask.to(dtype),
+            "valid": torch.ones(n, device=device, dtype=dtype)}
+
+
+def train_errors(got, want, out, ref) -> dict:
+    """Phase 10a's errors of the card's step (``got``, metrics ``out``)
+    against a CPU step (``want``, ``ref``), in float64."""
+    loss = abs(out["loss"].item() - ref["loss"].item()) / abs(
+        ref["loss"].item())
+    grads = {}
+    for (k, p), q in zip(got.model.named_parameters(),
+                         want.model.parameters()):
+        g, r = p.grad.cpu().double(), q.grad.double()
+        grads[k] = ((g - r).norm() / r.norm()).item()
+    worst = max(grads, key=grads.get)
+    sd, ref_sd = got.model.state_dict(), want.model.state_dict()
+    stats = max(((sd[k].cpu().double() - ref_sd[k].double()).abs().max()
+                 / ref_sd[k].double().abs().max()).item()
+                for k in ref_sd if "running" in k)
+    return {"loss": loss, "grad": grads[worst], "grad_tensor": worst,
+            "grad_median": float(np.median(list(grads.values()))),
+            "stats": stats}
+
+
+def check_train_step(seed: int) -> dict:
+    """Phase 10a: one train step on the card against the CPU's, in fp32
+    and in float64 (the CPU's own fp32 gradients sit a median ~1e-3
+    from its float64 ones, PERF.md §2; the float64 step shows the
+    card's error alone)."""
+    stack = block_stack(TN, TH, TW, seed + 20)
+    errors = {}
+    for name, conf in TRAIN_CONFS.items():
+        refs = {}
+        for ref_name, dtype in (("fp32", torch.float32),
+                                ("fp64", torch.float64)):
+            ref_state, step, _ = train_setup(conf, "cpu", True, seed)
+            ref_state.model.to(dtype)
+            t0 = time.perf_counter()
+            ref = step(ref_state, fixed_batch(stack, "cpu", dtype))
+            refs[ref_name] = (ref_state, ref, time.perf_counter() - t0)
+        for precision in ("default", "fp32"):
+            set_precision(precision)
+            state, step, _ = train_setup(conf, DEV, True, seed)
+            out = step(state, fixed_batch(stack, DEV))
+            torch.cuda.synchronize()
+            if not np.isfinite(out["loss"].item()):
+                raise AssertionError(f"{name}: the loss is not finite")
+            for ref_name, (ref_state, ref, secs) in refs.items():
+                err = train_errors(state, ref_state, out, ref)
+                errors[(name, precision, ref_name)] = err
+                bounds = TRAIN_BOUNDS[name][precision]
+                print(f"train 10a ({name}, card {precision} against the CPU "
+                      f"{ref_name}, {secs:.1f} s): loss {ref['loss']:.6f} "
+                      f"rel err {err['loss']:.3e} (bound "
+                      f"{bounds['loss']:.1e}); gradients: largest rel L2 "
+                      f"{err['grad']:.3e} ({err['grad_tensor']}), median "
+                      f"{err['grad_median']:.3e} (bound "
+                      f"{bounds['grad']:.1e}); BN statistics "
+                      f"{err['stats']:.3e} (bound {bounds['stats']:.1e})")
+                if any(err[k] > bounds[k] for k in bounds):
+                    raise AssertionError(
+                        f"train step on the card ({name}, {precision}) "
+                        f"disagrees with the CPU's in {ref_name}")
+            del state, step
+        del refs
+    set_precision("fp32")
+    return errors
+
+
+def train_speed(seed: int) -> dict:
+    """Phase 10b: ms/step and images/s at batch 8, then the learning
+    check on one fixed batch."""
+    from semanticsegmentationactivelearning_tpu_torch.data import pipeline
+    set_precision("default")
+    stack = torch.from_numpy(block_stack(TB, 2 * TH, 2 * TW,
+                                         seed + 21)).to(DEV)
+    heights = torch.full((TB,), 2 * TH, device=DEV)
+    widths = torch.full((TB,), 2 * TW, device=DEV)
+    out = {}
+    for name, conf in TRAIN_CONFS.items():
+        state, step, hp = train_setup(conf, DEV, False, seed)
+        times = []
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            gen = torch.Generator(DEV).manual_seed(seed + i)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, image, label, mask = pipeline.augment_batch(
+                stack, heights, widths, gen, (TH, TW))
+            step(state, {"image": image, "label": label, "mask": mask,
+                         "valid": torch.ones(TB, device=DEV)}, gen)
+            end.record()
+            times.append((start, end))
+        torch.cuda.synchronize()
+        ms = float(np.median([s.elapsed_time(e)
+                              for s, e in times[TRAIN_WARMUP:]]))
+        # the learning check starts from the seeded weights again
+        state, step, hp = train_setup(conf, DEV, False, seed)
+        batch = {"image": image, "label": label, "mask": mask,
+                 "valid": torch.ones(TB, device=DEV)}
+        losses = [step(state, batch,
+                       torch.Generator(DEV).manual_seed(100 + i))["loss"]
+                  for i in range(LEARN_STEPS)]
+        losses = [v.item() for v in losses]
+        out[name] = {"ms": ms, "images_per_s": 1000.0 * TB / ms,
+                     "losses": losses}
+        print(f"train 10b ({name}: {hp['optimizer']['type']}, multiscale "
+              f"{hp['softmax']['multiscale']}, log-inverse "
+              f"{hp['softmax']['loginverse_scaling']}): {ms:.3f} ms/step, "
+              f"{1000.0 * TB / ms:.1f} images/s (batch {TB}, {TH}x{TW}, "
+              f"median of {TRAIN_TIMED}); loss on one batch over "
+              f"{LEARN_STEPS} steps {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({losses[-1] / losses[0]:.3f} of the first)")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: the train loss is not finite")
+        if name == "pretrain" and not losses[-1] < 0.5 * losses[0]:
+            raise AssertionError("the pretrain conf's step does not learn "
+                                 "one batch in 20 steps")
+        del state, step
+    set_precision("fp32")
+    return out
+
+
+def profile_training(seed: int) -> None:
+    """Phase 10c: 5 train steps of each conf under torch.profiler."""
+    from semanticsegmentationactivelearning_tpu_torch.data import pipeline
+    set_precision("default")
+    stack = torch.from_numpy(block_stack(TB, 2 * TH, 2 * TW,
+                                         seed + 22)).to(DEV)
+    hw = torch.full((TB,), 2 * TH, device=DEV), \
+        torch.full((TB,), 2 * TW, device=DEV)
+    valid = torch.ones(TB, device=DEV)
+    for name, conf in TRAIN_CONFS.items():
+        state, step, _ = train_setup(conf, DEV, False, seed)
+        gen = torch.Generator(DEV).manual_seed(seed)
+
+        def one(s):
+            _, image, label, mask = pipeline.augment_batch(s, *hw, gen,
+                                                           (TH, TW))
+            step(state, {"image": image, "label": label, "mask": mask,
+                         "valid": valid}, gen)
+
+        profile_chain(f"train step {name} (batch {TB}, {TH}x{TW})", one,
+                      stack)
+        del state, step
+    set_precision("fp32")
+
+
+def run_train_cli(seed: int) -> None:
+    """Phase 10d: the train CLI (2 epochs, then a resume for a third)
+    and the inference CLI on its checkpoint, each in a child process
+    that checks it imported no JAX."""
+    writer = (
+        "import sys, io, os, numpy as np\n"
+        "from PIL import Image\n"
+        "from semanticsegmentationactivelearning_tpu_torch.data import "
+        "example, tfrecord\n"
+        "root, seed = sys.argv[1], int(sys.argv[2])\n"
+        "rng = np.random.default_rng(seed)\n"
+        f"colors = rng.integers(0, 256, ({BLOCK_CLASSES}, 3))\n"
+        "def png(a):\n"
+        "    b = io.BytesIO(); Image.fromarray(a).save(b, format='PNG')\n"
+        "    return b.getvalue()\n"
+        "for split, n in (('train', 16), ('val', 4)):\n"
+        "    os.makedirs(f'{root}/{split}')\n"
+        "    for i in range(n):\n"
+        f"        idx = rng.integers(0, {BLOCK_CLASSES}, (8, 8))\n"
+        f"        lbl = np.kron(idx, np.ones(({TH // 8}, {TW // 8}), "
+        "np.int64))\n"
+        "        img = np.clip(colors[lbl] + rng.integers(-20, 20, "
+        "lbl.shape + (3,)), 0, 255).astype(np.uint8)\n"
+        "        ex = example.SegExample(file_id=f'{split}{i}', "
+        "height=lbl.shape[0], width=lbl.shape[1], "
+        "label=png(lbl.astype(np.uint8)), "
+        "modalities={'image': (png(img), 'png', 3)})\n"
+        "        tfrecord.write_record_file(f'{root}/{split}/{i}.tfrecord',"
+        " example.make_example(ex))\n" + LEAK_CHECK)
+
+    def child(module, *argv):
+        script = ("import runpy, sys\n"
+                  f"sys.argv[0] = {module.rsplit('.', 1)[-1]!r}\n"
+                  "try:\n"
+                  f"    runpy.run_module({module!r}, run_name='__main__')\n"
+                  "except SystemExit as e:\n"
+                  "    if e.code:\n"
+                  "        raise\n" + LEAK_CHECK)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", script, *argv],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise AssertionError(f"{module} failed:\n" + res.stdout
+                                 + res.stderr[-4000:])
+        return res, time.perf_counter() - t0
+
+    port = "semanticsegmentationactivelearning_tpu_torch"
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, log = os.path.join(tmp, "rec"), os.path.join(tmp, "log")
+        subprocess.run([sys.executable, "-c", writer, rec, str(seed)],
+                       check=True)
+        with open(TRAIN_CONFS["pretrain"]) as fp:
+            conf = json.load(fp)
+        for epochs in (2, 3):
+            conf["epochs"] = epochs
+            path = os.path.join(tmp, f"conf{epochs}.json")
+            with open(path, "w") as fp:
+                json.dump(conf, fp)
+            res, secs = child(f"{port}.train", "cityscapes", "-d", rec,
+                              "-l", log, "-p", path, "--seed", str(seed))
+            print(f"train cli ({epochs} epochs): {secs:.1f} s")
+            if epochs == 3 and "at epoch 3..." not in res.stdout:
+                raise AssertionError("the resumed run did not start at "
+                                     "epoch 3:\n" + res.stderr[-4000:])
+        with open(os.path.join(log, "metrics.jsonl")) as fp:
+            records = [json.loads(line) for line in fp]
+        splits = [r["split"] for r in records]
+        want = (["train_iter"] * 2 + ["train", "val"]) * 2 + ["final_val"]
+        want += ["train_iter"] * 2 + ["train", "val", "final_val"]
+        bad = [r["split"] for r in records
+               if set(r) != TRAIN_RECORD_KEYS[r["split"]]]
+        resumed = [(r["epoch"], r["step"]) for r in records[9:]
+                   if r["split"] == "train_iter"]
+        train = [r["loss"] for r in records if r["split"] == "train"]
+        files = sorted(f for f in os.listdir(log) if f.endswith(".ckpt"))
+        print(f"train cli: records {splits}; resumed steps {resumed}; "
+              f"train loss by epoch {train}; checkpoints {files}")
+        if splits != want or bad or resumed != [(3, 5), (3, 6)] \
+                or files != ["model-1.ckpt", "model-2.ckpt", "model-3.ckpt"]:
+            raise AssertionError("the train CLI's records or checkpoints "
+                                 f"are not as expected: {bad}")
+        if not train[1] < train[0]:
+            raise AssertionError("epoch 2's training loss is not under "
+                                 "epoch 1's")
+        out = os.path.join(tmp, "out")
+        res, secs = child(f"{port}.inference", "-c", log, "-d",
+                          os.path.join(rec, "val"), "-o", out, "-t",
+                          "cityscapes", "-b", "2")
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        shape = np.asarray(PIL.Image.open(os.path.join(out, pngs[0]))).shape
+        print(f"inference cli on the trained checkpoint: {len(pngs)} PNGs "
+              f"of {shape} in {secs:.1f} s")
+        if len(pngs) != 4 or shape != (TH, TW) \
+                or "Model: ENet" not in res.stderr \
+                or "(kernel chain)" not in res.stderr:
+            raise AssertionError("the inference CLI did not serve the "
+                                 "trained checkpoint through the kernels")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1893,6 +2257,16 @@ def main(argv=None) -> int:
     per_kernel.update(rig_results)
     launches.update(rig_launches)
 
+    # 10. training
+    torch.cuda.empty_cache()
+    check_train_step(args.seed)
+    torch.cuda.empty_cache()
+    train = train_speed(args.seed)
+    torch.cuda.empty_cache()
+    profile_training(args.seed)
+    torch.cuda.empty_cache()
+    run_train_cli(args.seed)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
         raise AssertionError(f"imported JAX or the JAX package: {leaked}")
@@ -1917,6 +2291,10 @@ def main(argv=None) -> int:
     print(f"icnet serve: kernel {icnet_serve_ms:.3f} ms/batch, plain "
           f"{icnet_serve_plain_ms:.3f} ms/batch (batch {N}, {H}x{W}, "
           f"ICNet-{CLASSES}; {smi})")
+    for conf, r in train.items():
+        print(f"train {conf}: {r['ms']:.3f} ms/step, "
+              f"{r['images_per_s']:.1f} images/s (batch {TB}, {TH}x{TW}, "
+              f"ENet-{CLASSES}, {TRAIN_CONFS[conf]}; {smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

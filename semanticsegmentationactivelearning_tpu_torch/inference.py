@@ -38,6 +38,7 @@ from .data.device_prefetch import device_prefetch
 from .models import get_model
 from .ops import nn as xops
 from .train import checkpoint as ckpt
+from .utils import cli
 
 logger = logging.getLogger(__name__)
 
@@ -76,18 +77,6 @@ def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
         return lut[xops.resize_bilinear(prob, out_hw).argmax(dim=-1)]
 
     return predict
-
-
-def _serving_device(name: str) -> torch.device:
-    """The device ``--device`` names. ``cuda`` (the default) needs a
-    CUDA device and raises without one: the CPU serves only when the
-    caller asks for it."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda: no CUDA device is available (torch "
-            f"{torch.__version__}, CUDA build {torch.version.cuda}); pass "
-            "--device cpu to serve with the plain PyTorch chain on the CPU")
-    return torch.device(name)
 
 
 def _record_files(data_dir: str, dataset) -> list:
@@ -131,7 +120,7 @@ def main(args) -> int:
         if getattr(args, flag):
             raise NotImplementedError(message)
     model_name = _resolve_model_name(args)
-    device = _serving_device(args.device)
+    device = cli.device_from_args(args.device)
     # the record reader, dataset tables and PNG writer (the loader and
     # the writer pull in PIL); imported here so that make_predict_fn's
     # import path holds none of them

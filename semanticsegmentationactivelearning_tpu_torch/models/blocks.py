@@ -6,17 +6,19 @@ permuted NCHW view. Parameter names mirror the flax tree
 (``proj_conv``, ``proj_bn``, ``proj_prelu``, ...) so that
 ``train/bridge.py`` maps one onto the other by name.
 
-The blocks are the eval forward: batch norm always uses its running
-statistics and spatial dropout is never applied. Train-mode batch
-statistics and dropout belong to the training slice (ROADMAP Queue 1
-item 2). The TPU-only pieces of the JAX blocks (the ``conv_impl``
-shifted-matmul lowering, bf16 compute and phase-domain logits) are
-not ported.
+Every block takes ``training`` (default False). In eval, batch norm
+uses its running statistics and no dropout is applied. In training,
+batch norm normalises with the batch's statistics and updates its
+running ones as flax does (momentum 0.9, the biased variance), and the
+bottlenecks apply spatial dropout at their ``drop_rate`` with the
+caller's ``torch.Generator``. The TPU-only pieces of the JAX blocks (the
+``conv_impl`` shifted-matmul lowering, bf16 compute and phase-domain
+logits) are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +27,8 @@ from torch import nn
 from ..ops import nn as xops
 
 BN_EPS = 1e-3
+# flax BatchNorm(momentum=0.90): running = 0.9 * running + 0.1 * batch
+BN_MOMENTUM = 0.9
 
 
 def add_blocks(module: nn.Module, named) -> Tuple[str, ...]:
@@ -40,7 +44,10 @@ def add_blocks(module: nn.Module, named) -> Tuple[str, ...]:
 class PackedModel(nn.Module):
     """A model whose kernels take BN-folded weight packs: ``packed``
     builds each pack once per device and keeps it until the next
-    ``load_state_dict``."""
+    ``load_state_dict`` or :meth:`clear_packs`. A pack does not follow
+    an in-place edit of the weights or BN statistics: whoever edits them
+    clears the packs (``train.steps.make_train_step`` does after every
+    optimizer step, since the step also moves the running statistics)."""
 
     def __init__(self):
         super().__init__()
@@ -146,9 +153,29 @@ class BatchNorm(nn.Module):
         s = self.weight * torch.rsqrt(self.running_var + BN_EPS)
         return s, self.bias - self.running_mean * s
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s, t = self.scale_shift()
-        return x * s + t
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
+        if not training:
+            s, t = self.scale_shift()
+            return x * s + t
+        # the batch's mean and biased variance over N, H, W; the NCHW
+        # view of an NHWC tensor is channels_last, which the CUDA kernel
+        # takes as it is. The CPU's channels_last backward sums each
+        # channel in float32 one element after another: at 2x128x256 its
+        # train step's gradients sit a median 4e-3 from float64 against
+        # 4.5e-4 through the contiguous NCHW kernel.
+        xc = x.permute(0, 3, 1, 2)
+        if xc.device.type == "cpu":
+            xc = xc.contiguous()
+        out, mean, invstd = torch.native_batch_norm(
+            xc, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
+        with torch.no_grad():
+            var = invstd.pow(-2) - BN_EPS
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                var, alpha=1.0 - BN_MOMENTUM)
+        return out.permute(0, 2, 3, 1)
 
 
 class Initial(nn.Module):
@@ -161,9 +188,10 @@ class Initial(nn.Module):
         self.bn = BatchNorm(out_ch)
         self.prelu = PReLU(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
         out = torch.cat([self.conv(x), xops.max_pool_2x2(x)], dim=-1)
-        return self.prelu(self.bn(out))
+        return self.prelu(self.bn(out, training))
 
 
 class Bottleneck(nn.Module):
@@ -173,9 +201,10 @@ class Bottleneck(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  asymmetric: bool = False, dilation: int = 1,
-                 projection_rate: int = 4):
+                 projection_rate: int = 4, drop_rate: float = 0.1):
         super().__init__()
         f = channels // projection_rate
+        self.drop_rate = drop_rate
         k = kernel_size
         self.asymmetric = asymmetric
         self.dilation = dilation
@@ -198,10 +227,13 @@ class Bottleneck(nn.Module):
             return self.conv_row(self.conv_col(h))
         return self.conv(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.proj_prelu(self.proj_bn(self.proj_conv(x)))
-        h = self.conv_prelu(self.conv_bn(self.spatial(h)))
-        h = self.exp_bn(self.exp_conv(h))
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        h = self.proj_prelu(self.proj_bn(self.proj_conv(x), training))
+        h = self.conv_prelu(self.conv_bn(self.spatial(h), training))
+        h = self.exp_bn(self.exp_conv(h), training)
+        h = xops.spatial_dropout(h, self.drop_rate, generator, training)
         return self.res_prelu(h + x)
 
 
@@ -210,10 +242,12 @@ class BottleneckDownsample(nn.Module):
     residual is a 2x2 max pool with switches, zero-padded in channels.
     Returns ``(out, switches)``."""
 
-    def __init__(self, in_ch: int, out_ch: int, projection_rate: int = 4):
+    def __init__(self, in_ch: int, out_ch: int, projection_rate: int = 4,
+                 drop_rate: float = 0.1):
         super().__init__()
         f = 2 * (in_ch // projection_rate)
         self.out_ch = out_ch
+        self.drop_rate = drop_rate
         self.proj_conv = Conv(in_ch, f, (2, 2), stride=2)
         self.proj_bn = BatchNorm(f)
         self.proj_prelu = PReLU(f)
@@ -224,11 +258,13 @@ class BottleneckDownsample(nn.Module):
         self.exp_bn = BatchNorm(out_ch)
         self.res_prelu = PReLU(out_ch)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        h = self.proj_prelu(self.proj_bn(self.proj_conv(x)))
-        h = self.conv_prelu(self.conv_bn(self.conv(h)))
-        h = self.exp_bn(self.exp_conv(h))
+        h = self.proj_prelu(self.proj_bn(self.proj_conv(x), training))
+        h = self.conv_prelu(self.conv_bn(self.conv(h), training))
+        h = self.exp_bn(self.exp_conv(h), training)
+        h = xops.spatial_dropout(h, self.drop_rate, generator, training)
         res, switches = xops.max_pool_with_switches(x)
         res = F.pad(res, (0, self.out_ch - x.shape[-1]))
         return self.res_prelu(h + res), switches
@@ -239,9 +275,11 @@ class BottleneckUpsample(nn.Module):
     expand; the residual is a 1x1 conv to the output channels unpooled
     with the encoder's switches."""
 
-    def __init__(self, in_ch: int, out_ch: int, projection_rate: int = 4):
+    def __init__(self, in_ch: int, out_ch: int, projection_rate: int = 4,
+                 drop_rate: float = 0.1):
         super().__init__()
         f = in_ch // projection_rate
+        self.drop_rate = drop_rate
         self.proj_conv = Conv(in_ch, f)
         self.proj_bn = BatchNorm(f)
         self.proj_prelu = PReLU(f)
@@ -253,11 +291,14 @@ class BottleneckUpsample(nn.Module):
         self.res_conv = Conv(in_ch, out_ch)
         self.res_prelu = PReLU(out_ch)
 
-    def forward(self, x: torch.Tensor, switches: torch.Tensor
+    def forward(self, x: torch.Tensor, switches: torch.Tensor,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        h = self.proj_prelu(self.proj_bn(self.proj_conv(x)))
-        h = self.conv_prelu(self.conv_bn(self.deconv(h)))
-        h = self.exp_bn(self.exp_conv(h))
+        h = self.proj_prelu(self.proj_bn(self.proj_conv(x), training))
+        h = self.conv_prelu(self.conv_bn(self.deconv(h), training))
+        h = self.exp_bn(self.exp_conv(h), training)
+        h = xops.spatial_dropout(h, self.drop_rate, generator, training)
         res = xops.unpool_with_switches(self.res_conv(x), switches)
         return self.res_prelu(h + res)
 
@@ -271,3 +312,25 @@ class Final(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.deconv(x)
+
+
+def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Fresh weights from the CPU ``generator``, in module order, equal
+    on every device: glorot uniform conv and transposed-conv kernels
+    (flax's ``glorot_uniform`` law), PReLU 0.25, BN scale 1 and bias 0,
+    running mean 0 and variance 1."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Conv, ConvTranspose)):
+                w = torch.empty(m.weight.shape)
+                nn.init.xavier_uniform_(w, generator=generator)
+                m.weight.copy_(w)
+            elif isinstance(m, PReLU):
+                m.alpha.fill_(0.25)
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    if isinstance(model, PackedModel):
+        model.clear_packs()

@@ -22,19 +22,33 @@ return_stage1=True)``, ``forward(..., return_stage4=True)``,
 :meth:`ENet.fused_predict` chains the front, mid and tail-predict
 kernels of ``ops/kernels``; :meth:`ENet.fused_score` routes the
 acquisition score through the front, mid and one of the three score
-kernels. The multiscale loss heads and ``return_embedding`` belong to
-the training and core-set slices and are not ported yet (ROADMAP Queue
-1 items 2 and 8).
+kernels.
+
+Training: ``forward(x, training=True, generator=g)`` normalises with the
+batch's statistics, updates the running ones and applies spatial
+dropout at the stage's rate of ``drop_rates`` (Bottleneck1_*: the first,
+Bottleneck2_*: the second, Bottleneck3_*: the third, Bottleneck4_*: the
+fourth, Bottleneck5_*: the fifth), drawing from ``g``. A model built
+with ``multiscale_heads`` holds the multiscale loss heads
+``MultiscaleHead_{0,1,2}`` (1x1 no-bias convs to the classes over
+B5_1, B4_2 and B3_8), which ``forward(..., multiscale=True)`` returns
+beside the logits. ``return_embedding`` belongs to the core-set slice
+and is not ported yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import logging
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .blocks import (Bottleneck, BottleneckDownsample, BottleneckUpsample,
-                     Final, Initial, PackedModel, add_blocks)
+                     Conv, Final, Initial, PackedModel, add_blocks)
+
+logger = logging.getLogger(__name__)
+
+HEAD_PREFIX = "MultiscaleHead_"
 
 # (dilation, asymmetric) of Bottleneck{2,3}_1..8
 DILATED_SPEC = ((1, False), (2, False), (1, True), (4, False),
@@ -48,60 +62,107 @@ class ENet(PackedModel):
     # logits (train/steps.make_score_step takes it)
     supports_fused_scoring = True
 
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int,
+                 drop_rates: Sequence[float] = (0.01, 0.1, 0.1, 0.1, 0.1),
+                 multiscale_heads: bool = False):
         super().__init__()
+        if len(drop_rates) != 5:
+            raise ValueError(
+                "Illegal argument value drop_rates, length must be 5.")
+        dr = tuple(float(r) for r in drop_rates)
         self.num_classes = num_classes
+        self.drop_rates = dr
+        self.multiscale_heads = multiscale_heads
         self.Initial = Initial(3, 16)
-        self.Bottleneck1_0 = BottleneckDownsample(16, 64)
+        self.Bottleneck1_0 = BottleneckDownsample(16, 64, drop_rate=dr[0])
         self.stage1 = add_blocks(self, (
-            (f"Bottleneck1_{i}", Bottleneck(64)) for i in range(1, 5)))
-        self.Bottleneck2_0 = BottleneckDownsample(64, 128)
+            (f"Bottleneck1_{i}", Bottleneck(64, drop_rate=dr[0]))
+            for i in range(1, 5)))
+        self.Bottleneck2_0 = BottleneckDownsample(64, 128, drop_rate=dr[1])
         self.stage23 = add_blocks(self, (
             (f"Bottleneck{s}_{i}",
              Bottleneck(128, kernel_size=5 if asym else 3,
-                        asymmetric=asym, dilation=d))
+                        asymmetric=asym, dilation=d, drop_rate=dr[s - 1]))
             for s in (2, 3)
             for i, (d, asym) in enumerate(DILATED_SPEC, start=1)))
-        self.Bottleneck4_0 = BottleneckUpsample(128, 64)
+        self.Bottleneck4_0 = BottleneckUpsample(128, 64, drop_rate=dr[3])
         self.stage4 = add_blocks(self, (
-            (f"Bottleneck4_{i}", Bottleneck(64)) for i in (1, 2)))
-        self.Bottleneck5_0 = BottleneckUpsample(64, 16)
-        self.Bottleneck5_1 = Bottleneck(16)
+            (f"Bottleneck4_{i}", Bottleneck(64, drop_rate=dr[3]))
+            for i in (1, 2)))
+        self.Bottleneck5_0 = BottleneckUpsample(64, 16, drop_rate=dr[4])
+        self.Bottleneck5_1 = Bottleneck(16, drop_rate=dr[4])
         self.Final = Final(16, num_classes)
+        if multiscale_heads:
+            # over B5_1 (16 ch), B4_2 (64 ch) and B3_8 (128 ch)
+            for i, ch in enumerate((16, 64, 128)):
+                self.add_module(f"{HEAD_PREFIX}{i}", Conv(ch, num_classes))
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """As ``nn.Module.load_state_dict``, except for the multiscale
+        loss heads, which follow the JAX package's partial restore: a
+        model without heads drops them, a model with heads keeps its own
+        where the state has none."""
+        state = dict(state_dict)
+        heads = [k for k in state if k.startswith(HEAD_PREFIX)]
+        if not self.multiscale_heads:
+            for k in heads:
+                del state[k]
+        elif not heads:
+            logger.info("no multiscale heads in the weights; keeping "
+                        "their initialisation")
+            state.update({k: v for k, v in self.state_dict().items()
+                          if k.startswith(HEAD_PREFIX)})
+        return super().load_state_dict(state, strict=strict, assign=assign)
 
     def blocks(self, names: Tuple[str, ...]):
         return [getattr(self, n) for n in names]
 
     # -- forward and seams ---------------------------------------------
 
-    def forward(self, x: torch.Tensor, return_stage1: bool = False,
-                return_stage4: bool = False,
+    def forward(self, x: torch.Tensor, training: bool = False,
+                multiscale: bool = False,
+                generator: Optional[torch.Generator] = None,
+                return_stage1: bool = False, return_stage4: bool = False,
                 return_pre_logits: bool = False):
         """``x`` NHWC float -> float32 logits ``[N, H, W, classes]``;
-        with ``return_stage1`` the stage-1 features and switches, with
+        with ``multiscale`` ``(logits, (logits, head0(B5_1),
+        head1(B4_2), head2(B3_8)))``, the multiscale loss's heads; with
+        ``return_stage1`` the stage-1 features and switches, with
         ``return_stage4`` the stage-4 features and the B1_0 switches
         (the decoder score kernel's inputs), with ``return_pre_logits``
-        the B5_1 output that the Final layer takes."""
-        h, switches1 = self.Bottleneck1_0(self.Initial(x))
+        the B5_1 output that the Final layer takes. ``training`` and
+        ``generator``: see the module docstring."""
+        if multiscale and not self.multiscale_heads:
+            raise ValueError("multiscale needs a model built with "
+                             "multiscale_heads=True")
+        t, g = training, generator
+        h, switches1 = self.Bottleneck1_0(self.Initial(x, t), t, g)
         for block in self.blocks(self.stage1):
-            h = block(h)
+            h = block(h, t, g)
         if return_stage1:
             return h, switches1
-        y, switches2 = self.forward_stage23(h)
-        f4 = self.forward_stage4(y, switches2)
+        y, switches2 = self.forward_stage23(h, t, g)
+        f4 = self.forward_stage4(y, switches2, t, g)
         if return_stage4:
             return f4, switches1
-        pre = self.decode_from_stage4(f4, switches1)
+        pre = self.decode_from_stage4(f4, switches1, t, g)
         if return_pre_logits:
             return pre
-        return self.Final(pre)
+        logits = self.Final(pre)
+        if not multiscale:
+            return logits
+        heads = tuple(getattr(self, f"{HEAD_PREFIX}{i}")(ep)
+                      for i, ep in enumerate((pre, f4, y)))
+        return logits, (logits, *heads)
 
-    def forward_stage23(self, x1: torch.Tensor
+    def forward_stage23(self, x1: torch.Tensor, training: bool = False,
+                        generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Stage-1 features -> (stage-3 features, B2_0 switches)."""
-        h, switches2 = self.Bottleneck2_0(x1)
+        h, switches2 = self.Bottleneck2_0(x1, training, generator)
         for block in self.blocks(self.stage23):
-            h = block(h)
+            h = block(h, training, generator)
         return h, switches2
 
     def forward_from_stage1(self, x1: torch.Tensor) -> torch.Tensor:
@@ -109,21 +170,25 @@ class ENet(PackedModel):
         y, switches2 = self.forward_stage23(x1)
         return self.forward_stage4(y, switches2)
 
-    def forward_stage4(self, y: torch.Tensor, switches2: torch.Tensor
+    def forward_stage4(self, y: torch.Tensor, switches2: torch.Tensor,
+                       training: bool = False,
+                       generator: Optional[torch.Generator] = None
                        ) -> torch.Tensor:
         """Stage 4: stage-3 features and the B2_0 switches (int8,
         ``[N, h, w*64]``) -> stage-4 features ``[N, 2h, 2w, 64]``."""
-        h = self.Bottleneck4_0(y, switches2)
+        h = self.Bottleneck4_0(y, switches2, training, generator)
         for block in self.blocks(self.stage4):
-            h = block(h)
+            h = block(h, training, generator)
         return h
 
-    def decode_from_stage4(self, f4: torch.Tensor, switches1: torch.Tensor
+    def decode_from_stage4(self, f4: torch.Tensor, switches1: torch.Tensor,
+                           training: bool = False,
+                           generator: Optional[torch.Generator] = None
                            ) -> torch.Tensor:
         """Stage 5: stage-4 features and the B1_0 switches (int8,
         ``[N, h, w*16]``) -> the pre-logits ``[N, 2h, 2w, 16]``."""
-        h = self.Bottleneck5_0(f4, switches1)
-        return self.Bottleneck5_1(h)
+        h = self.Bottleneck5_0(f4, switches1, training, generator)
+        return self.Bottleneck5_1(h, training, generator)
 
     def forward_tail(self, y: torch.Tensor, switches2: torch.Tensor,
                      switches1: torch.Tensor) -> torch.Tensor:

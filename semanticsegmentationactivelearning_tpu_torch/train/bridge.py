@@ -14,9 +14,9 @@ The rules:
   ``weight/bias/running_mean/running_var``.
 - PReLU ``alpha`` stays as it is.
 
-ENet's multiscale loss heads (``MultiscaleHead_*``) are training-only
-and not ported yet, so they are skipped; ICNet's cascade heads
-(``aux_cls``) are ported and carried over.
+ENet's multiscale loss heads (``MultiscaleHead_*``, 1x1 convs) and
+ICNet's cascade heads (``aux_cls``) cross like any other conv; an ENet
+built without heads drops them on loading (``ENet.load_state_dict``).
 
 :func:`read_jax_checkpoint` reads the ``.ckpt`` files the JAX
 package's ``train/checkpoint.save_checkpoint`` writes (flax msgpack,
@@ -33,7 +33,6 @@ import torch
 
 _BN_NAMES = {"scale": "weight", "bias": "bias",
              "mean": "running_mean", "var": "running_var"}
-_SKIPPED_PREFIXES = ("MultiscaleHead_",)
 # msgpack ext codes of flax.serialization for arrays and numpy scalars
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
@@ -72,8 +71,6 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _walk(variables.get(collection, {})):
-            if path[0].startswith(_SKIPPED_PREFIXES):
-                continue
             key, tensor = _convert(path, value)
             out[key] = tensor
     return out

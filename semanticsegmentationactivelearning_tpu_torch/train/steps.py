@@ -1,22 +1,158 @@
 """Steps of the PyTorch port, the counterpart of
 ``semanticsegmentationactivelearning_tpu/train/steps.py``.
 
-So far the scoring step only: :func:`make_score_step` is the AL loop's
-pool-scoring hot path (reference active_learning.py:697-698). The
-train, eval and predict steps belong to the training slice (ROADMAP.md
-Queue 1 item 4), the embed step to item 8. PyTorch runs eagerly, so the
-step is a plain closure; the JAX package's grouped dispatch
-(``lax.map`` over micro-batches) and its mesh paths are not ported
-(ROADMAP.md "Not to port", Queue 1 items 9 and 10).
+- ``train_step`` (:func:`make_train_step`): the forward in train mode
+  (batch statistics, spatial dropout, the multiscale heads when the
+  conf asks for them) -> masked CE or multiscale CE, plus the L1/L2
+  regularization -> backward -> optimizer and scheduler step. The
+  running BN statistics move in the forward, as flax's mutable
+  ``batch_stats`` do.
+- ``eval_step`` (:func:`make_eval_step`): the eval forward -> argmax ->
+  batch confusion matrix.
+- ``predict_step`` (:func:`make_predict_step`): the eval forward ->
+  argmax labels (the image summaries).
+- ``score_step`` (:func:`make_score_step`): the AL loop's pool-scoring
+  hot path (reference active_learning.py:697-698).
+
+Every step consumes the batch's ``valid`` flags, so a padded tail batch
+adds nothing to the loss or the metrics. PyTorch runs eagerly, so each
+step is a plain closure over the model. The JAX steps take phase logits
+(``Final(phase=True)``); their docstrings hold that the confusion counts
+equal those of the plain logits for ENet, so these take the plain ones.
+Not ported: the pseudo-label path of the train step (the
+``active_learning`` slice, ROADMAP.md Queue 1 item 7), grouped dispatch,
+remat and the mesh (ROADMAP.md "Not to port", Queue 1 items 9-10).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..ops import acquisition
+from ..ops import acquisition, losses, metrics
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training run carries from step to step: the model (its
+    parameters and BN statistics), the optimizer and its scheduler, the
+    update count ``step`` (the reference's local_step) and the finished
+    ``epoch`` count (its epoch_step)."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: Any
+    step: int = 0
+    epoch: int = 0
+
+
+def create_train_state(model, optimizer, scheduler,
+                       seed: Optional[int] = None) -> TrainState:
+    """A fresh ``TrainState``; with ``seed``, the model's weights are
+    first drawn anew from ``torch.Generator().manual_seed(seed)``
+    (``models.blocks.reset_parameters``: glorot uniform kernels, flax's
+    law), the same on every device."""
+    if seed is not None:
+        from ..models.blocks import reset_parameters
+        reset_parameters(model, torch.Generator().manual_seed(int(seed)))
+    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
+
+
+def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
+                    pseudo_cfg: Optional[Dict[str, Any]] = None):
+    """The supervised train step:
+    ``train_step(state, batch, generator) -> metrics`` for ``batch =
+    {"image", "label", "mask", "valid"}`` on the model's device and a
+    ``torch.Generator`` there for the dropout draws. It updates
+    ``state`` in place (weights, BN statistics, optimizer, scheduler,
+    ``step += 1``) and returns ``{"loss", "cost", "learning_rate",
+    "confusion"}``: the CE and CE + regularization as device scalars,
+    the rate this update applied (the schedule at the pre-increment
+    step) and the batch's int64 confusion matrix. The optimizer and its
+    schedule are the state's (``optim.make_optimizer``).
+
+    :param model:       the model ``state`` trains (its
+                        ``ms_loss_weights``, where it has them, weigh the
+                        multiscale heads)
+    :param hyperparams: the conf's ``hyperparams`` block (C22 schema)
+    :param pseudo_cfg:  the AL pseudo-labelling path, not ported yet
+    """
+    if pseudo_cfg is not None:
+        raise NotImplementedError(
+            "the pseudo-label train step belongs to the active_learning "
+            "CLI's slice, not ported yet: ROADMAP.md Queue 1 item 7")
+    softmax_cfg = hyperparams.get("softmax", {})
+    reg_cfg = hyperparams.get("weight_reg", {})
+    multiscale = bool(softmax_cfg.get("multiscale", False))
+    weight = float(softmax_cfg.get("loginverse_scaling", 0.0))
+    label_smoothing = float(softmax_cfg.get("label_smoothing", 0.0))
+    l1 = float(reg_cfg.get("L1", 0.0))
+    l2 = float(reg_cfg.get("L2", 0.0))
+    glorot_scaling = bool(reg_cfg.get("glorot_scaling", False))
+    scale_weights = getattr(model, "ms_loss_weights", None)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, Any]:
+        m = state.model
+        label = batch["label"]
+        mask = batch["mask"] * batch["valid"].float()[:, None, None]
+        outputs = m(batch["image"], training=True, multiscale=multiscale,
+                    generator=generator)
+        if multiscale:
+            logits, heads = outputs
+            loss = losses.multiscale_masked_softmax_cross_entropy(
+                label, heads, mask, num_classes, weight, label_smoothing,
+                scale_weights=scale_weights)
+        else:
+            logits = outputs
+            loss = losses.masked_softmax_cross_entropy(
+                label, logits, mask, num_classes, weight, label_smoothing)
+        cost = loss + losses.regularization_loss(m, l1, l2, glorot_scaling)
+        state.optimizer.zero_grad(set_to_none=True)
+        cost.backward()
+        lr = state.scheduler.get_last_lr()[0]
+        state.optimizer.step()
+        state.scheduler.step()
+        # the kernels' BN-folded packs hold the old weights and statistics
+        if hasattr(m, "clear_packs"):
+            m.clear_packs()
+        state.step += 1
+        with torch.no_grad():
+            conf = metrics.confusion_matrix(label, logits.argmax(dim=-1),
+                                            num_classes, mask)
+        return {"loss": loss.detach(), "cost": cost.detach(),
+                "learning_rate": lr, "confusion": conf}
+
+    return train_step
+
+
+def make_eval_step(model, num_classes: int):
+    """``eval_step(batch) -> [C, C]`` int64 confusion of the eval
+    forward's argmax over ``batch = {"image", "label", "mask",
+    "valid"}``."""
+
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        pred = model(batch["image"]).argmax(dim=-1)
+        mask = batch["mask"] * batch["valid"].float()[:, None, None]
+        return metrics.confusion_matrix(batch["label"], pred, num_classes,
+                                        mask)
+
+    return eval_step
+
+
+def make_predict_step(model):
+    """``predict_step(image) -> [N, H, W]`` int32 argmax labels of the
+    eval forward (the image summaries; the reference colorized
+    predictions in-graph, train.py:178-206)."""
+
+    @torch.inference_mode()
+    def predict_step(image: torch.Tensor) -> torch.Tensor:
+        return model(image).argmax(dim=-1).to(torch.int32)
+
+    return predict_step
 
 
 def make_score_step(model, num_classes: int, measure: str,

@@ -4,13 +4,21 @@ their port counterparts through train/bridge.py, and the decided-pixel
 label rule."""
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 
+from semanticsegmentationactivelearning_tpu.models import ENet as JaxENet
 from semanticsegmentationactivelearning_tpu.models import ICNet as JaxICNet
+from semanticsegmentationactivelearning_tpu.train import (
+    make_train_step as jax_make_train_step)
+from semanticsegmentationactivelearning_tpu.train.steps import (
+    TrainState as JaxTrainState)
 from semanticsegmentationactivelearning_tpu_torch.models import ENet, ICNet
-from semanticsegmentationactivelearning_tpu_torch.train import bridge
+from semanticsegmentationactivelearning_tpu_torch.train import (bridge,
+                                                                 optim, steps)
 
 
 def noised_variables(model, x, seed):
@@ -89,3 +97,200 @@ def assert_labels_match(got, logits, margin=1e-4):
     assert mask.mean() > 0.99
     want = np.argmax(np.asarray(logits), axis=-1)
     np.testing.assert_array_equal(np.asarray(got)[mask], want[mask])
+
+
+# XLA options for the JAX references of the training tests: a train step
+# of ENet takes ~25 s to compile at the default level on one core and
+# under half that here; the results are the same computation.
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def fast_jit(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` with ``FAST_COMPILE``."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)
+
+
+def seeded_port_enet(num_classes, seed, drop_rates=(0.0,) * 5,
+                     multiscale_heads=True):
+    """The port's ENet with glorot weights from a seeded generator and
+    |N(0, 0.3)| added to its BN statistics (numpy, ``seed``)."""
+    from semanticsegmentationactivelearning_tpu_torch.models.blocks import (
+        BatchNorm, reset_parameters)
+    model = ENet(num_classes, drop_rates=drop_rates,
+                 multiscale_heads=multiscale_heads)
+    reset_parameters(model, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                for buf in (m.running_mean, m.running_var):
+                    buf += torch.from_numpy(np.abs(rng.normal(
+                        size=buf.shape, scale=0.3)).astype(np.float32))
+    return model
+
+
+def flax_variables(model):
+    """The flax ``{"params", "batch_stats"}`` tree (numpy) holding a
+    port ENet's weights: the inverse of ``bridge.state_dict_from_flax``."""
+    from semanticsegmentationactivelearning_tpu_torch.models.blocks import (
+        BatchNorm, Conv, ConvTranspose, PReLU)
+    params, stats = {}, {}
+
+    def put(tree, name, leaf, value):
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        # a copy: JAX may read a numpy buffer in place, asynchronously
+        node[leaf] = np.array(value.detach().cpu().numpy(), copy=True)
+
+    for name, m in model.named_modules():
+        if isinstance(m, Conv):
+            put(params, name, "kernel", m.weight.permute(2, 3, 1, 0))
+        elif isinstance(m, ConvTranspose):
+            put(params, name, "kernel",
+                m.weight.permute(2, 3, 0, 1).flip(0, 1))
+        elif isinstance(m, PReLU):
+            put(params, name, "alpha", m.alpha)
+        elif isinstance(m, BatchNorm):
+            put(params, name, "scale", m.weight)
+            put(params, name, "bias", m.bias)
+            put(stats, name, "mean", m.running_mean)
+            put(stats, name, "var", m.running_var)
+    return {"params": params, "batch_stats": stats}
+
+
+# -- the train step's JAX reference (tests/test_torch_train_step*.py) ----
+#
+# The JAX step runs once per case with an optimizer that applies nothing
+# and keeps the gradients it is given, so one compile yields the step's
+# loss, cost, learning rate, confusion, new BN statistics and exact
+# gradients; optax's optimizers are then applied to those gradients.
+# Both sides run in float64 (the JAX model with ``dtype`` float64 under
+# ``jax.enable_x64``; each side's CE and regularizer in float32, as in
+# training): in float32 the rounding of either implementation moves
+# some BN gradients of this shape by up to 6% (relative L2) from the
+# float64 step, so a float32 comparison could not hold a step to 1e-6.
+
+TRAIN_C = 19
+TRAIN_HW = (32, 64)
+# Adam's first update is lr * g / (|g| + eps): at the confs' 1e-8 its
+# direction on a gradient element below the gradients' rounding (~1e-7
+# here, the CE is float32 on both sides) is noise, and one such element
+# read 0.87 of an update apart; at 1e-3 the update is smooth in g
+ADAM_EPS = 1e-3
+
+
+def train_hyperparams(multiscale, opt="SGD", lr=5e-4):
+    """The train steps' conf: with ``multiscale`` the pretrain conf's
+    loss (label smoothing, the heads), else the AL conf's (log-inverse
+    weights 1.02); L1 and L2 regularization."""
+    return {"learning_rate": lr, "learning_rate_decay": 0.0,
+            "optimizer": {"type": opt,
+                          "kwargs": {"beta1": 0.9, "beta2": 0.99,
+                                     "epsilon": ADAM_EPS}},
+            "weight_reg": {"L2": 2e-4, "L1": 1e-5, "glorot_scaling": False},
+            "softmax": {"multiscale": multiscale,
+                        "label_smoothing": 0.05 if multiscale else 0.0,
+                        "loginverse_scaling": 0.0 if multiscale else 1.02}}
+
+
+def train_batch(seed=3):
+    """A seeded float64 batch of 2 at TRAIN_HW, 10% of it masked."""
+    rng = np.random.default_rng(seed)
+    return {"image": rng.uniform(size=(2, *TRAIN_HW, 3)),
+            "label": rng.integers(0, TRAIN_C, (2, *TRAIN_HW))
+            .astype(np.int32),
+            "mask": (rng.uniform(size=(2, *TRAIN_HW)) > 0.1)
+            .astype(np.float64),
+            "valid": np.ones(2)}
+
+
+def port_train_batch(b, dtype=torch.float64):
+    return {"image": torch.from_numpy(b["image"]).to(dtype),
+            "label": torch.from_numpy(b["label"]).long(),
+            "mask": torch.from_numpy(b["mask"]).to(dtype),
+            "valid": torch.from_numpy(b["valid"]).to(dtype)}
+
+
+_JAX_TRAIN_STEPS = {}
+
+
+def jax_train_step(multiscale):
+    """The JAX step's outputs in float64, computed once a case:
+    ((metrics, gradients, new BN statistics), the initial flax
+    variables)."""
+    if multiscale not in _JAX_TRAIN_STEPS:
+        _JAX_TRAIN_STEPS[multiscale] = _run_jax_train_step(multiscale)
+    return _JAX_TRAIN_STEPS[multiscale]
+
+
+def _run_jax_train_step(multiscale):
+    model = seeded_port_enet(TRAIN_C, 0,
+                             multiscale_heads=multiscale).double()
+    variables = flax_variables(model)
+    batch = train_batch()
+    keep_grads = optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
+    with jax.enable_x64(True):
+        jm = JaxENet(num_classes=TRAIN_C, drop_rates=(0.0,) * 5,
+                     dtype=jnp.float64)
+        body = jax_make_train_step(jm, keep_grads, TRAIN_C,
+                                   train_hyperparams(multiscale),
+                                   _body_only=True)
+        state = JaxTrainState(
+            params=variables["params"],
+            batch_stats=variables["batch_stats"],
+            opt_state=keep_grads.init(variables["params"]),
+            step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
+        key = jax.random.PRNGKey(0)
+        new, metrics = fast_jit(body, state, batch, key)(state, batch, key)
+        out = jax.tree_util.tree_map(
+            np.asarray, (metrics, new.opt_state, new.batch_stats))
+    return out, variables
+
+
+def port_train_step(multiscale, opt="SGD", lr=5e-4, dtype=torch.float64):
+    """One step of the port on the seeded ENet and ``train_batch()``:
+    (the state after it, its metrics)."""
+    model = seeded_port_enet(TRAIN_C, 0,
+                             multiscale_heads=multiscale).to(dtype)
+    hp = train_hyperparams(multiscale, opt, lr)
+    optimizer, scheduler = optim.make_optimizer(model.parameters(), hp)
+    state = steps.create_train_state(model, optimizer, scheduler)
+    step = steps.make_train_step(model, TRAIN_C, hp)
+    metrics = step(state, port_train_batch(train_batch(), dtype))
+    return state, metrics
+
+
+def optax_updated(variables, grads, tx):
+    """optax's first update of ``tx`` on ``grads``, applied."""
+    def apply(g, p):
+        updates, _ = tx.update(g, tx.init(g), p)
+        return optax.apply_updates(p, updates)
+
+    with jax.enable_x64(True):
+        return jax.tree_util.tree_map(
+            np.asarray, jax.jit(apply)(grads, variables["params"]))
+
+
+def check_sgd_step(multiscale):
+    """One SGD step of the port against the JAX step's."""
+    (want, grads, new_stats), variables = jax_train_step(multiscale)
+    state, got = port_train_step(multiscale)
+    assert state.step == 1
+    for k in ("loss", "cost"):
+        np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-5)
+    np.testing.assert_allclose(got["learning_rate"],
+                               float(want["learning_rate"]), rtol=1e-7)
+    np.testing.assert_array_equal(got["confusion"].numpy(),
+                                  want["confusion"])
+    params = optax_updated(variables, grads, optax.sgd(5e-4))
+    expect = bridge.state_dict_from_flax({"params": params,
+                                          "batch_stats": new_stats})
+    sd = state.model.state_dict()
+    assert expect.keys() == sd.keys()
+    for k, v in expect.items():
+        np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=k)

@@ -967,3 +967,82 @@ def test_matmul_rig_matches_plain_version(mode, n_cols, dtype, rows, m, tol):
     assert got.shape == (3,)
     assert ((got - final.sum(dim=1)).abs() <= tol * final.abs().sum(dim=1)
             ).all()
+
+
+# -- the training slice (no kernel: plain PyTorch with cuDNN) ------------
+
+def _train_pair(multiscale):
+    """(state on the card, state on the CPU): the same seeded ENet-19
+    with dropout rates 0 and SGD, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from semanticsegmentationactivelearning_tpu_torch.train import (optim,
+                                                                     steps)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = {"learning_rate": 5e-4, "optimizer": {"type": "SGD"},
+          "weight_reg": {"L2": 2e-4},
+          "softmax": {"multiscale": multiscale,
+                      "loginverse_scaling": 0.0 if multiscale else 1.02}}
+    states = []
+    for dev in ("cuda", "cpu"):
+        m = ENet(C, drop_rates=(0.0,) * 5, multiscale_heads=multiscale)
+        m = m.to(dev)
+        opt, sched = optim.make_optimizer(m.parameters(), hp)
+        states.append(steps.create_train_state(m, opt, sched, seed=0))
+    return states, steps.make_train_step(states[0].model, C, hp)
+
+
+@pytest.mark.parametrize("multiscale", [True, False])
+def test_train_step_on_the_card_matches_the_cpu(multiscale):
+    """One train step at 2x64x128 on the card and on the CPU from the
+    same weights and batch, fp32: loss to 1e-4 relative, each parameter
+    after the step to 1e-5 absolute, the running statistics to 1e-4."""
+    from semanticsegmentationactivelearning_tpu_torch.data import pipeline
+    (gpu, cpu), step = _train_pair(multiscale)
+    rng = np.random.default_rng(1)
+    stack = np.concatenate([rng.integers(0, 256, (2, 64, 128, 3)),
+                            rng.integers(0, C, (2, 64, 128, 1))], -1)
+    outs = []
+    for state in (gpu, cpu):
+        dev = next(state.model.parameters()).device
+        t = torch.from_numpy(stack.astype(np.uint8)).to(dev)
+        draws = (torch.zeros(2), torch.zeros(2),
+                 torch.tensor([False, True]), torch.full((2, 1, 1, 3), 0.9))
+        _, image, label, mask = pipeline.crop_flip_scale(
+            t, *[d.to(dev) for d in draws], crop_hw=(64, 128))
+        outs.append(step(state, {"image": image, "label": label,
+                                 "mask": mask,
+                                 "valid": torch.ones(2, device=dev)}))
+    np.testing.assert_allclose(outs[0]["loss"].item(), outs[1]["loss"].item(),
+                               rtol=1e-4)
+    want = cpu.model.state_dict()
+    for k, v in gpu.model.state_dict().items():
+        atol = 1e-4 if "running" in k else 1e-5
+        np.testing.assert_allclose(v.cpu().numpy(), want[k].numpy(),
+                                   rtol=0, atol=atol, err_msg=k)
+
+
+def test_augment_core_on_the_card_equals_the_cpu():
+    """The same draws give the same crops, labels and masks bit for bit
+    and the same scaled images to one float32 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from semanticsegmentationactivelearning_tpu_torch.data import pipeline
+    rng = np.random.default_rng(2)
+    stack = torch.from_numpy(rng.integers(0, 256, (4, 80, 120, 4))
+                             .astype(np.uint8))
+    heights, widths = [80, 70, 64, 50], [120, 100, 96, 90]
+    draws = pipeline.draw_augmentation(heights, widths, (64, 96), 3,
+                                       torch.Generator().manual_seed(0))
+    cpu = pipeline.crop_flip_scale(stack, *draws, crop_hw=(64, 96))
+    gpu = pipeline.crop_flip_scale(stack.cuda(),
+                                   *[d.cuda() for d in draws],
+                                   crop_hw=(64, 96))
+    for name, a, b in zip(("raw", "image", "label", "mask"), cpu, gpu):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=2e-7,
+                                   atol=0, err_msg=name)
+    gen = torch.Generator("cuda").manual_seed(0)
+    out = pipeline.augment_batch(stack.cuda(), heights, widths, gen,
+                                 (64, 96))
+    assert out[0].device.type == "cuda" and out[0].shape == (4, 64, 96, 3)

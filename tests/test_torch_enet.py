@@ -189,15 +189,29 @@ def test_conv_transpose_matches_lax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_bridge_skips_multiscale_heads(pair):
-    """Training-only heads in the flax tree are not ported yet."""
+def test_bridge_carries_multiscale_heads(pair):
+    """The multiscale loss heads of a flax tree cross the bridge into an
+    ENet built with heads and compute what the flax heads compute; an
+    ENet built without heads drops them (strictly, every other key
+    loads)."""
+    import flax.linen as fnn
     variables = to_numpy_tree(pair[1])
     params = dict(variables["params"])
-    for i in range(3):
+    rng = np.random.default_rng(7)
+    for i, ch in enumerate((16, 64, 128)):
         params[f"MultiscaleHead_{i}"] = {
-            "kernel": np.zeros((1, 1, 16, C), np.float32)}
+            "kernel": rng.normal(size=(1, 1, ch, C)).astype(np.float32)}
     sd = bridge.state_dict_from_flax({**variables, "params": params})
-    get_model("ENet", C).load_state_dict(sd)  # strict: same key set
+    with_heads = ENet(C, multiscale_heads=True)
+    with_heads.load_state_dict(sd)
+    for i, ch in enumerate((16, 64, 128)):
+        x = _rand((1, 8, 8, ch), 20 + i)
+        want = fnn.Conv(C, (1, 1), use_bias=False).apply(
+            {"params": params[f"MultiscaleHead_{i}"]}, jnp.asarray(x))
+        got = getattr(with_heads, f"MultiscaleHead_{i}")(torch.from_numpy(x))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
+    get_model("ENet", C).load_state_dict(sd)  # strict on the rest
 
 
 def test_get_model():
