@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's ENet and ICNet serving and
-pool-scoring paths, of ENet's training and of its measurement rigs on
-one NVIDIA GPU.
+pool-scoring paths, of ENet's training and active-learning loop and of
+its measurement rigs on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -145,6 +145,33 @@ Phases (any failure raises, so the exit code is not 0):
         checkpoints, and epoch 2's training loss under epoch 1's; then
         the inference CLI serves the trained checkpoint through the
         kernel chain.
+  11. the active-learning loop, ENet-19 at the AL conf's 512x1024 input
+     and batch 8, on 36 + 4 synthetic 1024x2048 colour-block records:
+     a. the pseudo-labelling step at batch 2, each part with the
+        entropy threshold at the unlabelled row's median confidence on
+        the CPU: its targets (the undistorted crop's eval forward,
+        pseudo_annotate, the labelled row kept; the smoke's weights,
+        Final x25) on the card against the CPU's, equal but on at most
+        AL_FLIPS of the pixels decided by AL_DECIDED (the undecided are
+        counted); then one pseudo step (SGD, dropout 0, TF32 off, phase
+        10a's weights) on the card against the CPU's in fp32 and
+        float64 on the targets the card's step used, under the AL
+        conf's fp32 TRAIN_BOUNDS;
+     b. the CLI's pool pass (active_learning.score_pool and
+        select_lowest) over 32 records in this process, with the kernel
+        and the plain score step: the scores within 1e-4 an image, the
+        same selection but for scores within 1e-4 of the cut, and the
+        counters (zeroed before) at front 5, mid 21 and tail score 2 a
+        batch; then the pass over the records listed 8 times, timed
+        with decode, H2D and the selection (median of 3 after 1),
+        beside phase 5b's device-only rate;
+     c. the AL CLI in child processes, with the conf cut to short
+        rounds (epochs 1, no warm-up, 4 validation records, 8 initially
+        labelled, 8 selected, learning rate 1e-7): two rounds, then side
+        by side a resume to a third, a random-baseline round (no score
+        kernel may launch) and -c <the first round's best> -r;
+        state.json, the records' keys, the round directories, the
+        kernels' launches and each round's al_timing.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}. Neither this process nor its child
 processes (the record writer and the CLI) import JAX or the JAX package;
@@ -1897,16 +1924,17 @@ def train_setup(conf: str, device, check: bool, seed: int):
 def fixed_batch(stack: np.ndarray, device, dtype=torch.float32) -> dict:
     """The train batch of ``stack`` through augment_batch's core with
     fixed draws (no crop offset, the second image flipped, scale 1.1),
-    its floats in ``dtype``."""
+    its floats in ``dtype``, with the undistorted crop ``image_raw``."""
     from semanticsegmentationactivelearning_tpu_torch.data import pipeline
     n = stack.shape[0]
     draws = (torch.zeros(n, dtype=torch.long), torch.zeros(n, dtype=torch.long),
              torch.arange(n) % 2 == 1, torch.full((n, 1, 1, 3), 1.1))
-    _, image, label, mask = pipeline.crop_flip_scale(
+    raw, image, label, mask = pipeline.crop_flip_scale(
         torch.from_numpy(stack).to(device), *[d.to(device) for d in draws],
         crop_hw=stack.shape[1:3])
     return {"image": image.to(dtype), "label": label, "mask": mask.to(dtype),
-            "valid": torch.ones(n, device=device, dtype=dtype)}
+            "valid": torch.ones(n, device=device, dtype=dtype),
+            "image_raw": raw.to(dtype)}
 
 
 def train_errors(got, want, out, ref) -> dict:
@@ -2053,57 +2081,100 @@ def profile_training(seed: int) -> None:
     set_precision("fp32")
 
 
+# writes colour-block records (as block_stack's, one 8x8 grid of blocks
+# an image, drawn in order from one generator) and encodes their PNGs in
+# 8 forked processes: python -c RECORD_WRITER root seed h w split=n ...
+RECORD_WRITER = (
+    "import sys, io, os, multiprocessing, numpy as np\n"
+    "from PIL import Image\n"
+    "from semanticsegmentationactivelearning_tpu_torch.data import "
+    "example, tfrecord\n"
+    "root, seed, h, w = sys.argv[1], *map(int, sys.argv[2:5])\n"
+    "rng = np.random.default_rng(seed)\n"
+    f"colors = rng.integers(0, 256, ({BLOCK_CLASSES}, 3))\n"
+    "def png(a):\n"
+    "    b = io.BytesIO(); Image.fromarray(a).save(b, format='PNG')\n"
+    "    return b.getvalue()\n"
+    "def write(k):\n"
+    "    path, name, lbl, img = items[k]\n"
+    "    ex = example.SegExample(file_id=name, height=lbl.shape[0], "
+    "width=lbl.shape[1], label=png(lbl), "
+    "modalities={'image': (png(img), 'png', 3)})\n"
+    "    tfrecord.write_record_file(path, example.make_example(ex))\n"
+    "items = []\n"
+    "for split, n in (a.split('=') for a in sys.argv[5:]):\n"
+    "    os.makedirs(f'{root}/{split}')\n"
+    "    for i in range(int(n)):\n"
+    f"        idx = rng.integers(0, {BLOCK_CLASSES}, (8, 8))\n"
+    "        lbl = np.kron(idx, np.ones((h // 8, w // 8), np.int64))\n"
+    "        img = np.clip(colors[lbl] + rng.integers(-20, 20, "
+    "lbl.shape + (3,)), 0, 255).astype(np.uint8)\n"
+    "        items.append((f'{root}/{split}/{i}.tfrecord', f'{split}{i}', "
+    "lbl.astype(np.uint8), img))\n"
+    "with multiprocessing.get_context('fork').Pool(8) as pool:\n"
+    "    pool.map(write, range(len(items)))\n" + LEAK_CHECK)
+
+
+def write_records(root: str, seed: int, h: int, w: int, **splits) -> None:
+    """Colour-block records of ``h`` x ``w`` under ``root/<split>/``, as
+    many as ``splits`` says, written by RECORD_WRITER in a child process.
+    The child forks its encoders, so it runs with one BLAS thread: it
+    has no thread when it forks."""
+    env = dict(os.environ, OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    subprocess.run([sys.executable, "-c", RECORD_WRITER, root, str(seed),
+                    str(h), str(w), *(f"{k}={n}" for k, n in splits.items())],
+                   check=True, env=env)
+
+
+def start_child(module: str, *argv, after: str = ""):
+    """Start ``python -m module argv`` in a child process that runs
+    ``after`` once the module is done, then checks that it imported no
+    JAX; its output goes to temporary files. Returns a handle for
+    :func:`wait_child`."""
+    script = ("import runpy, sys\n"
+              f"sys.argv[0] = {module.rsplit('.', 1)[-1]!r}\n"
+              "try:\n"
+              f"    runpy.run_module({module!r}, run_name='__main__')\n"
+              "except SystemExit as e:\n"
+              "    if e.code:\n"
+              "        raise\n" + after + LEAK_CHECK)
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", script, *argv],
+                            stdout=out, stderr=err, text=True)
+    return module, proc, out, err, time.perf_counter()
+
+
+def wait_child(handle):
+    """Wait for a child of :func:`start_child`. Returns (a finished
+    ``CompletedProcess``, its seconds); fails on an error."""
+    module, proc, out, err, t0 = handle
+    code = proc.wait()
+    secs = time.perf_counter() - t0
+    texts = []
+    for f in (out, err):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if code != 0:
+        raise AssertionError(f"{module} failed:\n" + texts[0]
+                             + texts[1][-4000:])
+    return subprocess.CompletedProcess(proc.args, code, *texts), secs
+
+
+def run_child(module: str, *argv, after: str = ""):
+    """:func:`start_child`, then :func:`wait_child`."""
+    return wait_child(start_child(module, *argv, after=after))
+
+
 def run_train_cli(seed: int) -> None:
     """Phase 10d: the train CLI (2 epochs, then a resume for a third)
     and the inference CLI on its checkpoint, each in a child process
     that checks it imported no JAX."""
-    writer = (
-        "import sys, io, os, numpy as np\n"
-        "from PIL import Image\n"
-        "from semanticsegmentationactivelearning_tpu_torch.data import "
-        "example, tfrecord\n"
-        "root, seed = sys.argv[1], int(sys.argv[2])\n"
-        "rng = np.random.default_rng(seed)\n"
-        f"colors = rng.integers(0, 256, ({BLOCK_CLASSES}, 3))\n"
-        "def png(a):\n"
-        "    b = io.BytesIO(); Image.fromarray(a).save(b, format='PNG')\n"
-        "    return b.getvalue()\n"
-        "for split, n in (('train', 16), ('val', 4)):\n"
-        "    os.makedirs(f'{root}/{split}')\n"
-        "    for i in range(n):\n"
-        f"        idx = rng.integers(0, {BLOCK_CLASSES}, (8, 8))\n"
-        f"        lbl = np.kron(idx, np.ones(({TH // 8}, {TW // 8}), "
-        "np.int64))\n"
-        "        img = np.clip(colors[lbl] + rng.integers(-20, 20, "
-        "lbl.shape + (3,)), 0, 255).astype(np.uint8)\n"
-        "        ex = example.SegExample(file_id=f'{split}{i}', "
-        "height=lbl.shape[0], width=lbl.shape[1], "
-        "label=png(lbl.astype(np.uint8)), "
-        "modalities={'image': (png(img), 'png', 3)})\n"
-        "        tfrecord.write_record_file(f'{root}/{split}/{i}.tfrecord',"
-        " example.make_example(ex))\n" + LEAK_CHECK)
-
-    def child(module, *argv):
-        script = ("import runpy, sys\n"
-                  f"sys.argv[0] = {module.rsplit('.', 1)[-1]!r}\n"
-                  "try:\n"
-                  f"    runpy.run_module({module!r}, run_name='__main__')\n"
-                  "except SystemExit as e:\n"
-                  "    if e.code:\n"
-                  "        raise\n" + LEAK_CHECK)
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", script, *argv],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise AssertionError(f"{module} failed:\n" + res.stdout
-                                 + res.stderr[-4000:])
-        return res, time.perf_counter() - t0
-
     port = "semanticsegmentationactivelearning_tpu_torch"
     with tempfile.TemporaryDirectory() as tmp:
         rec, log = os.path.join(tmp, "rec"), os.path.join(tmp, "log")
-        subprocess.run([sys.executable, "-c", writer, rec, str(seed)],
-                       check=True)
+        write_records(rec, seed, TH, TW, train=16, val=4)
         with open(TRAIN_CONFS["pretrain"]) as fp:
             conf = json.load(fp)
         for epochs in (2, 3):
@@ -2111,8 +2182,9 @@ def run_train_cli(seed: int) -> None:
             path = os.path.join(tmp, f"conf{epochs}.json")
             with open(path, "w") as fp:
                 json.dump(conf, fp)
-            res, secs = child(f"{port}.train", "cityscapes", "-d", rec,
-                              "-l", log, "-p", path, "--seed", str(seed))
+            res, secs = run_child(f"{port}.train", "cityscapes", "-d",
+                                  rec, "-l", log, "-p", path, "--seed",
+                                  str(seed))
             print(f"train cli ({epochs} epochs): {secs:.1f} s")
             if epochs == 3 and "at epoch 3..." not in res.stdout:
                 raise AssertionError("the resumed run did not start at "
@@ -2138,9 +2210,9 @@ def run_train_cli(seed: int) -> None:
             raise AssertionError("epoch 2's training loss is not under "
                                  "epoch 1's")
         out = os.path.join(tmp, "out")
-        res, secs = child(f"{port}.inference", "-c", log, "-d",
-                          os.path.join(rec, "val"), "-o", out, "-t",
-                          "cityscapes", "-b", "2")
+        res, secs = run_child(f"{port}.inference", "-c", log, "-d",
+                              os.path.join(rec, "val"), "-o", out, "-t",
+                              "cityscapes", "-b", "2")
         pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
         shape = np.asarray(PIL.Image.open(os.path.join(out, pngs[0]))).shape
         print(f"inference cli on the trained checkpoint: {len(pngs)} PNGs "
@@ -2150,6 +2222,337 @@ def run_train_cli(seed: int) -> None:
                 or "(kernel chain)" not in res.stderr:
             raise AssertionError("the inference CLI did not serve the "
                                  "trained checkpoint through the kernels")
+
+
+# phase 11: the active-learning loop (ENet-19, the AL conf's 512x1024
+# input and batch 8, on 1024x2048 colour-block records)
+AL_CONF = TRAIN_CONFS["al"]
+AL_POOL, AL_REPEAT, AL_PASSES = 32, 8, 3  # 11b: records, their listings
+#                                           in the timed pool, timed passes
+# 11a: a pixel's pseudo target is decided where its confidence sits at
+# least this far from the threshold and its top-2 logit margin exceeds it;
+# at most AL_FLIPS of the decided pixels may differ, phase 4's allowance
+# for whole-chain labels (a 2x2 pool window whose top two values nearly
+# tie takes another switch on the card, and its unpooled pixels move by
+# more than the margin: 2 of 1.05 M decided labels at seed 1 on an H100)
+AL_DECIDED, AL_FLIPS = 1e-3, 1e-4
+# the keys of each metrics.jsonl record of the AL CLI (the JAX CLI's)
+AL_RECORD_KEYS = {
+    "al_train_iter": {"split", "step", "round", "loss", "cost",
+                      "learning_rate", "wall_time"},
+    "al_train": {"split", "round", "epoch", "loss", "val_mean_iou",
+                 "labelled", "no_improvement", "confusion", "wall_time"},
+    "al_test": {"split", "round", "labelled", "mean_iou", "pixel_accuracy",
+                "class_iou", "confusion", "wall_time"},
+    "al_confidence": {"split", "round", "histogram", "bin_edges", "mean",
+                      "wall_time"},
+    "al_timing": {"split", "round", "labelled", "round_s", "train_s",
+                  "restore_s", "test_s", "score_select_s", "wall_time"}}
+
+
+def pseudo_batch(stack: np.ndarray, device, dtype=torch.float32) -> dict:
+    """fixed_batch with the first row labelled and the second not."""
+    batch = fixed_batch(stack, device, dtype)
+    batch["labelled"] = torch.tensor([True, False], device=device)
+    return batch
+
+
+def median_confidence(model, image: torch.Tensor) -> float:
+    """The median entropy confidence of ``model`` on ``image``."""
+    from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
+    with torch.no_grad():
+        return float(acquisition.confidence_map(
+            model(image), "entropy", CLASSES).median())
+
+
+def check_pseudo_step(seed: int) -> dict:
+    """Phase 11a: the pseudo-labelling step's targets on the card
+    against the CPU's on decided pixels (the smoke's seeded weights,
+    Final x25), then one pseudo step on the card (SGD, dropout 0, TF32
+    off) against the CPU's in fp32 and float64 on the targets the card's
+    step used; each at the unlabelled row's median confidence on the
+    CPU, so that half its pixels take a pseudo label."""
+    from semanticsegmentationactivelearning_tpu_torch.models import (
+        get_model)
+    from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
+    from semanticsegmentationactivelearning_tpu_torch.train import steps
+    set_precision("fp32")
+    stack = block_stack(TN, TH, TW, seed + 30)
+    model = get_model("ENet", CLASSES)
+    model.load_state_dict(seeded_state_dict(model, seed))
+    card = copy.deepcopy(model).to(DEV)
+    cpu_batch = pseudo_batch(stack, "cpu")
+    threshold = median_confidence(model, cpu_batch["image_raw"][1:])
+    cfg = {"measure": "entropy", "threshold": threshold}
+    want = steps.pseudo_targets(model, cpu_batch, cfg, CLASSES)
+    got = [t.cpu() for t in steps.pseudo_targets(
+        card, pseudo_batch(stack, DEV), cfg, CLASSES)]
+    with torch.no_grad():
+        logits = model(cpu_batch["image_raw"])
+    conf = acquisition.confidence_map(logits, "entropy", CLASSES)
+    top2 = logits.topk(2, dim=-1).values
+    decided = ((conf - threshold).abs() >= AL_DECIDED) \
+        & (top2[..., 0] - top2[..., 1] > AL_DECIDED)
+    decided[0] = True                  # the labelled row keeps its targets
+    differ = [int(((g != w) & decided).sum()) for g, w in zip(got, want)]
+    pseudo = want[1][1]
+    print(f"al 11a: pseudo targets (entropy at the median confidence "
+          f"{threshold:.6f}): {int(pseudo.sum())} of {pseudo.numel()} "
+          f"unlabelled pixels pseudo-labelled; {int((~decided[1]).sum())} "
+          f"undecided; differing on decided pixels: labels {differ[0]}, "
+          f"masks {differ[1]}; everywhere: labels "
+          f"{int((got[0] != want[0]).sum())}, masks "
+          f"{int((got[1] != want[1]).sum())}")
+    if max(differ) > AL_FLIPS * int(decided.sum()) \
+            or int(decided[1].sum()) < pseudo.numel() // 2:
+        raise AssertionError("the card's pseudo targets disagree with the "
+                             "CPU's (or fewer than half are decided)")
+    del card
+
+    state, _, hp = train_setup(AL_CONF, DEV, True, seed)
+    median = median_confidence(train_setup(AL_CONF, "cpu", True, seed)[0]
+                               .model, cpu_batch["image_raw"][1:])
+    cfg = {"measure": "entropy", "threshold": median}
+    batch = pseudo_batch(stack, DEV)
+    before = steps.pseudo_targets(state.model, batch, cfg, CLASSES)
+    # the targets the card's step computes and uses, for the CPU's steps
+    real, used = steps.pseudo_targets, []
+    steps.pseudo_targets = lambda *a: used.append(real(*a)) or used[-1]
+    try:
+        out = steps.make_train_step(state.model, CLASSES, hp,
+                                    pseudo_cfg=cfg)(state, batch)
+    finally:
+        steps.pseudo_targets = real
+    torch.cuda.synchronize()
+    targets = used[0]
+    print(f"al 11a: the step's targets against the same call just before "
+          f"it: {int((targets[0] != before[0]).sum())} labels and "
+          f"{int((targets[1] != before[1]).sum())} mask pixels differ")
+    bounds = TRAIN_BOUNDS["al"]["fp32"]
+    errors, failed = {}, []
+    for ref_name, dtype in (("fp32", torch.float32),
+                            ("fp64", torch.float64)):
+        ref_state, _, _ = train_setup(AL_CONF, "cpu", True, seed)
+        ref_state.model.to(dtype)
+        steps.pseudo_targets = lambda *a: (targets[0].cpu(),  # noqa: E731
+                                           targets[1].cpu().to(dtype))
+        try:
+            ref = steps.make_train_step(ref_state.model, CLASSES, hp,
+                                        pseudo_cfg=cfg)(
+                ref_state, pseudo_batch(stack, "cpu", dtype))
+        finally:
+            steps.pseudo_targets = real
+        err = train_errors(state, ref_state, out, ref)
+        err["ref_loss"] = ref["loss"].item()
+        errors[ref_name] = err
+        print(f"al 11a: pseudo step (threshold {median:.6g}, "
+              f"{int(targets[1][1].sum())} pseudo pixels) on the card "
+              f"against the CPU {ref_name}: loss {ref['loss']:.6f} rel err "
+              f"{err['loss']:.3e} (bound {bounds['loss']:.1e}); gradients: "
+              f"largest rel L2 {err['grad']:.3e} ({err['grad_tensor']}), "
+              f"median {err['grad_median']:.3e} (bound "
+              f"{bounds['grad']:.1e}); BN statistics {err['stats']:.3e} "
+              f"(bound {bounds['stats']:.1e})")
+        if any(err[k] > bounds[k] for k in bounds):
+            failed.append(ref_name)
+    cpu = [errors[k]["ref_loss"] for k in ("fp32", "fp64")]
+    print(f"al 11a: the CPU's fp32 loss against its float64 loss: rel err "
+          f"{abs(cpu[0] - cpu[1]) / abs(cpu[1]):.3e}")
+    if failed:
+        # the supervised step on the same batch, for comparison
+        state, step, _ = train_setup(AL_CONF, DEV, True, seed)
+        out = step(state, batch)
+        ref_state, step, _ = train_setup(AL_CONF, "cpu", True, seed)
+        ref_state.model.double()
+        ref = step(ref_state, pseudo_batch(stack, "cpu", torch.float64))
+        err = train_errors(state, ref_state, out, ref)
+        print(f"al 11a: the supervised step on this batch against the CPU "
+              f"fp64: loss rel err {err['loss']:.3e}, gradients "
+              f"{err['grad']:.3e}, BN statistics {err['stats']:.3e}")
+        raise AssertionError(f"the pseudo step on the card disagrees with "
+                             f"the CPU's in {failed}")
+    return errors
+
+
+def al_pool_pass(seed: int, files, score_ms: float):
+    """Phase 11b: the AL CLI's pool pass (``active_learning.score_pool``,
+    then ``select_lowest``) over ``files`` in this process, with the
+    kernel score step and with the plain one; the launch counters are
+    zeroed before the kernel pass. Then the pass over the files listed
+    AL_REPEAT times, timed on the host's clock with decode, H2D and the
+    selection. Returns (launches by kernel, images/s)."""
+    from semanticsegmentationactivelearning_tpu_torch import (
+        active_learning as al)
+    from semanticsegmentationactivelearning_tpu_torch.data import loader
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        deconv_score, decoder, front, mid, tail)
+    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+        make_score_step)
+    model = score_model(seed, FINAL_SCALE)
+    in_hw, key = (SH, SW), (seed + 13, 0)
+
+    def scores(step, names):
+        plan = al.rank_plan(loader.RecordLoader(names, SN, min_hw=in_hw),
+                            SN, in_hw)
+        return al.score_pool(step, plan, len(names), key, in_hw, 3, DEV,
+                             "al 11b")
+
+    wrappers = (front.fused_front_stage1, mid.fused_mid_stage23,
+                tail.fused_tail_entropy_score, tail.fused_tail_predict,
+                decoder.fused_decoder_entropy_score,
+                deconv_score.fused_deconv_entropy_score)
+    for fn in wrappers:
+        fn.launches = 0
+    kernel_step = make_score_step(model, CLASSES, "entropy")
+    got = scores(kernel_step, files)
+    launches = [fn.launches for fn in wrappers]
+    batches = -(-len(files) // SN)
+    want = [front.LAUNCHES_PER_CALL * batches,
+            mid.LAUNCHES_PER_CALL * batches,
+            tail.LAUNCHES_PER_CALL * batches, 0, 0, 0]
+    plain = scores(make_score_step(model, CLASSES, "entropy", fused=False),
+                   files)
+    err = float(np.abs(got - plain).max())
+    unlabelled = np.arange(SN, len(files))
+    picks = [set(al.select_lowest(c, unlabelled, SN)[0].tolist())
+             for c in (got, plain)]
+    cut = np.sort(plain[unlabelled])[SN - 1]
+    moved = sorted(picks[0] ^ picks[1])
+    print(f"al 11b: pool of {len(files)} records ({batches} batches): "
+          f"launches front/mid/tail score/tail predict/decoder/deconv "
+          f"{launches} (expected {want}); max |k-p| score {err:.3e}; "
+          f"selected {sorted(picks[0])}, the plain chain's differ at "
+          f"{moved} (cut {cut:.6f})")
+    if launches != want:
+        raise AssertionError("the pool pass did not go front -> mid -> "
+                             "tail score once a batch")
+    if not (err <= SCORE_TOL and np.isfinite(got).all()
+            and all(abs(plain[i] - cut) <= SCORE_TOL for i in moved)):
+        raise AssertionError("the pool pass's scores or selection disagree "
+                             "with the plain chain's")
+    names = list(files) * AL_REPEAT
+    times = []
+    for _ in range(1 + AL_PASSES):
+        t0 = time.perf_counter()
+        c = scores(kernel_step, names)
+        al.select_lowest(c, np.arange(len(c)), SN)
+        times.append(time.perf_counter() - t0)
+    secs = float(np.median(times[1:]))
+    ips = len(names) / secs
+    print(f"al 11b: pool pass with decode, H2D and selection: "
+          f"{len(names)} entries in {secs:.3f} s, {ips:.1f} images/s "
+          f"(median of {AL_PASSES} after 1: "
+          f"{[round(t, 3) for t in times]}); device only (phase 5b) "
+          f"{1e3 * SN / score_ms:.1f} images/s")
+    return dict(zip(("front_score", "mid_score", "tail_score"),
+                    launches[:3])), ips
+
+
+def run_al_cli(seed: int, rec: str) -> dict:
+    """Phase 11c: the AL CLI in child processes on ``rec`` with the AL
+    conf cut to short rounds: two rounds, then side by side a resume to
+    a third, a random baseline round and ``-c <the first round's best>
+    -r``; each child prints the score kernels' launches. Returns each
+    run's al_timing records."""
+    port = "semanticsegmentationactivelearning_tpu_torch"
+    counts = (
+        "from semanticsegmentationactivelearning_tpu_torch.ops.kernels "
+        "import front, mid, tail\n"
+        "print('al-kernel-launches:', front.fused_front_stage1.launches, "
+        "mid.fused_mid_stage23.launches, "
+        "tail.fused_tail_entropy_score.launches)\n")
+    with open(AL_CONF) as fp:
+        conf = json.load(fp)
+    conf["epochs"] = 1
+    # the rounds end on the first epoch without a validation gain (as
+    # the JAX CLI's test bounds them)
+    conf["hyperparams"]["learning_rate"] = 1e-7
+    conf["active_learning"].update({
+        "iterations": 2, "epochs/warm_up": 0, "num_validation": 4,
+        "num_initially_labelled": 8, "selection_size": 8})
+    pool = AL_POOL
+    batches = -(-pool // SN)
+    per_pass = [5 * batches, 21 * batches, 2 * batches]
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def start(name, log, extra=(), **al_over):
+            c = copy.deepcopy(conf)
+            c["active_learning"].update(al_over)
+            path = os.path.join(tmp, f"{name}.json")
+            with open(path, "w") as fp:
+                json.dump(c, fp)
+            return name, log, start_child(
+                f"{port}.active_learning", "cityscapes", "-d", rec, "-l",
+                log, "-p", path, "--seed", str(seed), *extra, after=counts)
+
+        def finish(started):
+            name, log, handle = started
+            res, secs = wait_child(handle)
+            line = [ln for ln in res.stdout.splitlines()
+                    if ln.startswith("al-kernel-launches:")][-1]
+            launches = [int(v) for v in line.split()[1:]]
+            with open(os.path.join(log, "metrics.jsonl")) as fp:
+                records = [json.loads(ln) for ln in fp]
+            with open(os.path.join(log, "state.json")) as fp:
+                state = json.load(fp)
+            timing = [r for r in records if r["split"] == "al_timing"]
+            timings[name] = timing
+            lab = state["dataset"]["train"]["labelled"]
+            unlab = state["dataset"]["train"]["unlabelled"]
+            bad = [r["split"] for r in records
+                   if set(r) != AL_RECORD_KEYS[r["split"]]]
+            print(f"al 11c ({name}): {secs:.1f} s; iteration "
+                  f"{state['iteration']}, {len(lab)} labelled, launches "
+                  f"front/mid/tail score {launches}; al_timing "
+                  + "; ".join(f"round {t['round']}: "
+                              + ", ".join(f"{k} {t[k]}" for k in
+                                          ("train_s", "restore_s", "test_s",
+                                           "score_select_s", "round_s"))
+                              for t in timing))
+            if bad or not set(lab).isdisjoint(unlab) \
+                    or len(set(lab)) != len(lab) \
+                    or sorted(lab + unlab) != list(range(pool)):
+                raise AssertionError(f"AL CLI ({name}): records {bad} or "
+                                     "the labelled sets are not as expected")
+            return res, state, records, launches
+
+        # the two rounds alone (their al_timing is the round's split),
+        # then the other three runs side by side
+        log = os.path.join(tmp, "log")
+        _, state, records, launches = finish(start("two_rounds", log))
+        splits = {r["split"] for r in records}
+        if state["iteration"] != 2 or len(state["dataset"]["train"][
+                "labelled"]) != min(24, pool) \
+                or splits != set(AL_RECORD_KEYS) \
+                or launches != [2 * n for n in per_pass] \
+                or not all(os.path.exists(os.path.join(log, d,
+                                                       "checkpoint.json"))
+                           for d in ("pretrain", "iter-1")):
+            raise AssertionError("AL CLI: two rounds not as expected")
+        runs = [start("resume", log, iterations=3),
+                start("baseline", os.path.join(tmp, "baseline"),
+                      iterations=1, selection_size=-8),
+                start("reinitialize", os.path.join(tmp, "reinit"),
+                      ("-c", os.path.join(log, "pretrain"), "-r"),
+                      iterations=1)]
+        res, state, _, launches = finish(runs[0])
+        if state["iteration"] != 3 or launches != per_pass \
+                or len(state["dataset"]["train"]["labelled"]) \
+                != min(32, pool) \
+                or "Resuming from checkpoint" not in res.stdout:
+            raise AssertionError("AL CLI: the resume not as expected")
+        _, state, records, launches = finish(runs[1])
+        if launches != [0, 0, 0] or state["iteration"] != 1 \
+                or len(state["dataset"]["train"]["labelled"]) \
+                != min(16, pool) \
+                or "al_confidence" in {r["split"] for r in records}:
+            raise AssertionError("AL CLI: the baseline round scored the "
+                                 "pool or selected wrongly")
+        res, state, _, launches = finish(runs[2])
+        if state["iteration"] != 1 or launches != per_pass \
+                or "drawn anew" not in res.stdout:
+            raise AssertionError("AL CLI: -c -r not as expected")
+    return timings
 
 
 def main(argv=None) -> int:
@@ -2267,6 +2670,26 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_train_cli(args.seed)
 
+    # 11. the active-learning loop
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    check_pseudo_step(args.seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "rec")
+        # the CLI holds out the first 4 (sorted) train records for
+        # validation; 11b scores the pool the CLI ranks
+        write_records(rec, args.seed + 40, 2 * TH, 2 * TW,
+                      train=AL_POOL + 4, val=4)
+        pool = sorted(os.path.join(rec, "train", f)
+                      for f in os.listdir(os.path.join(rec, "train")))[4:]
+        al_launches, al_ips = al_pool_pass(args.seed, pool, score_ms)
+        for k, v in al_launches.items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+        run_al_cli(args.seed, rec)
+    print(f"al: phase 11 in {time.perf_counter() - t11:.1f} s")
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
         raise AssertionError(f"imported JAX or the JAX package: {leaked}")
@@ -2295,6 +2718,9 @@ def main(argv=None) -> int:
         print(f"train {conf}: {r['ms']:.3f} ms/step, "
               f"{r['images_per_s']:.1f} images/s (batch {TB}, {TH}x{TW}, "
               f"ENet-{CLASSES}, {TRAIN_CONFS[conf]}; {smi})")
+    print(f"al pool pass: {al_ips:.1f} images/s with decode, H2D and "
+          f"selection (batch {SN}, {SH}x{SW} crops of 1024x2048 records, "
+          f"ENet-{CLASSES}; {smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,12 +21,25 @@ split from the deterministic core (:func:`crop_flip_scale`), which
 computes what the JAX function computes from the same draws; the draws
 follow the JAX law from a ``torch.Generator`` on the device.
 :func:`eval_batch` is the evaluation path's centre crop.
+
+The pool pass of the active-learning loop scores the undistorted crop
+of a label-free stack: :func:`score_batch` draws its crops and flips as
+:func:`augment_batch` does (so for one generator state it returns
+``augment_batch``'s ``image_raw``), and :func:`score_batch_indexed`
+draws each row's from a CPU generator seeded by the pass's key and the
+row's global example index alone, so that an example's crop does not
+depend on the batch, the size bucket or the order it is scored in. Both
+share the deterministic core :func:`score_crops`. The JAX package keys
+a row by ``fold_in(pass_key, index)``; its PRNG stream is not
+reproduced, only the law: ``top = floor(u * (max(h - ch, 0) + 1))``,
+the same for ``left``, and ``flip = u < 0.5``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -67,24 +80,31 @@ def _crops(stack: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
     return stack[b[:, None, None], rows[:, :, None], cols[:, None, :]]
 
 
-def draw_augmentation(heights, widths, crop_hw: Tuple[int, int],
-                      channels: int, generator: torch.Generator):
-    """The train path's random draws for a batch, on the generator's
-    device: crop origins ``floor(u * (max(valid - crop, 0) + 1))`` for
-    u ~ U[0, 1), flips ~ Bernoulli(0.5), scales ~ U[0.8, 1.4) of shape
-    ``[B, 1, 1, channels]``. Returns (tops, lefts, flips, scales)."""
+def draw_crops(heights, widths, crop_hw: Tuple[int, int],
+               generator: torch.Generator):
+    """A batch's crop and flip draws on the generator's device: crop
+    origins ``floor(u * (max(valid - crop, 0) + 1))`` for u ~ U[0, 1)
+    and flips ~ Bernoulli(0.5). Returns (tops, lefts, flips)."""
     dev = generator.device
     heights = _as_index(heights, dev)
     widths = _as_index(widths, dev)
-    n = heights.shape[0]
     max_top = (heights - crop_hw[0]).clamp(min=0)
     max_left = (widths - crop_hw[1]).clamp(min=0)
-    u = torch.rand((3, n), generator=generator, device=dev)
+    u = torch.rand((3, heights.shape[0]), generator=generator, device=dev)
     tops = torch.floor(u[0] * (max_top + 1)).long()
     lefts = torch.floor(u[1] * (max_left + 1)).long()
-    flips = u[2] < 0.5
-    scales = 0.8 + 0.6 * torch.rand((n, 1, 1, channels),
-                                    generator=generator, device=dev)
+    return tops, lefts, u[2] < 0.5
+
+
+def draw_augmentation(heights, widths, crop_hw: Tuple[int, int],
+                      channels: int, generator: torch.Generator):
+    """The train path's random draws for a batch, on the generator's
+    device: :func:`draw_crops`, then scales ~ U[0.8, 1.4) of shape
+    ``[B, 1, 1, channels]``. Returns (tops, lefts, flips, scales)."""
+    tops, lefts, flips = draw_crops(heights, widths, crop_hw, generator)
+    scales = 0.8 + 0.6 * torch.rand((tops.shape[0], 1, 1, channels),
+                                    generator=generator,
+                                    device=generator.device)
     return tops, lefts, flips, scales
 
 
@@ -111,6 +131,61 @@ def augment_batch(stack: torch.Tensor, heights, widths,
     ``(image_raw, image, label, mask)`` (see :func:`crop_flip_scale`)."""
     draws = draw_augmentation(heights, widths, crop_hw, channels, generator)
     return crop_flip_scale(stack, *draws, crop_hw=crop_hw, channels=channels)
+
+
+def score_crops(stack: torch.Tensor, tops, lefts, flips,
+                crop_hw: Tuple[int, int], channels: Optional[int] = None
+                ) -> torch.Tensor:
+    """The deterministic core of the pool pass's crop: the windows of a
+    label-free uint8 stack ``[B, Hs, Ws, planes]`` at the given origins,
+    flipped where ``flips``, as float32 in [0, 1] with the bits of the
+    JAX package's ``score_batch``. ``channels``: the planes to keep
+    (default all)."""
+    crops = _crops(stack, tops, lefts, flips, crop_hw)
+    if channels is not None:
+        crops = crops[..., :channels]
+    return crops.float() * _UNIT
+
+
+def score_batch(stack: torch.Tensor, heights, widths,
+                generator: torch.Generator, crop_hw: Tuple[int, int],
+                channels: Optional[int] = None) -> torch.Tensor:
+    """The pool pass's undistorted crop with a batch's draws: for one
+    generator state it equals ``augment_batch(...)[0]`` on the labelled
+    stack (the same :func:`draw_crops`)."""
+    tops, lefts, flips = draw_crops(heights, widths, crop_hw, generator)
+    return score_crops(stack, tops, lefts, flips, crop_hw, channels)
+
+
+def draw_score_crops(heights, widths, crop_hw: Tuple[int, int],
+                     pass_key: Sequence[int], index):
+    """Each row's crop and flip for the pool pass, on the CPU: row ``i``
+    draws three U[0, 1) from ``np.random.default_rng([*pass_key,
+    index[i]])``, so its draws depend on the pass's key (the AL loop's
+    ``(seed + 13, round)``) and its global example index alone. Returns
+    int64 (tops, lefts) and bool flips, CPU tensors."""
+    heights = np.asarray(heights, dtype=np.int64)
+    widths = np.asarray(widths, dtype=np.int64)
+    key = [int(k) for k in pass_key]
+    u = np.stack([np.random.default_rng(key + [int(i)]).random(3)
+                  for i in np.asarray(index).reshape(-1)]).reshape(-1, 3)
+    tops = np.floor(u[:, 0] * (np.maximum(heights - crop_hw[0], 0) + 1))
+    lefts = np.floor(u[:, 1] * (np.maximum(widths - crop_hw[1], 0) + 1))
+    return (torch.from_numpy(tops.astype(np.int64)),
+            torch.from_numpy(lefts.astype(np.int64)),
+            torch.from_numpy(u[:, 2] < 0.5))
+
+
+def score_batch_indexed(stack: torch.Tensor, heights, widths,
+                        pass_key: Sequence[int], index,
+                        crop_hw: Tuple[int, int],
+                        channels: Optional[int] = None) -> torch.Tensor:
+    """:func:`score_batch` with per-example draws
+    (:func:`draw_score_crops`): pool scores do not change with the batch
+    size, the size buckets or the order of the pool. ``heights``,
+    ``widths`` and ``index`` are the loader's host arrays."""
+    draws = draw_score_crops(heights, widths, crop_hw, pass_key, index)
+    return score_crops(stack, *draws, crop_hw=crop_hw, channels=channels)
 
 
 def eval_batch(stack: torch.Tensor, heights, widths,

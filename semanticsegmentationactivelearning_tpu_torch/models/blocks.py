@@ -18,6 +18,7 @@ logits) are not ported.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -41,13 +42,22 @@ def add_blocks(module: nn.Module, named) -> Tuple[str, ...]:
     return tuple(names)
 
 
+# each submodule of a PackedModel that has built a pack -> a weak
+# reference to that model, so that an edit of the submodule alone
+# (reset_parameters on the output layer) clears the packs built from it
+_PACK_OWNERS: "weakref.WeakKeyDictionary[nn.Module, weakref.ref]" = \
+    weakref.WeakKeyDictionary()
+
+
 class PackedModel(nn.Module):
     """A model whose kernels take BN-folded weight packs: ``packed``
     builds each pack once per device and keeps it until the next
     ``load_state_dict`` or :meth:`clear_packs`. A pack does not follow
     an in-place edit of the weights or BN statistics: whoever edits them
     clears the packs (``train.steps.make_train_step`` does after every
-    optimizer step, since the step also moves the running statistics)."""
+    optimizer step, since the step also moves the running statistics;
+    :func:`reset_parameters` does for the model that owns the module it
+    is given)."""
 
     def __init__(self):
         super().__init__()
@@ -61,6 +71,9 @@ class PackedModel(nn.Module):
         after editing weights in place."""
         key = (name, torch.device(device))
         if key not in self._packs:
+            owner = weakref.ref(self)
+            for m in self.modules():
+                _PACK_OWNERS[m] = owner
             with torch.no_grad():
                 pack = build(self)
             if isinstance(pack, list):
@@ -315,16 +328,21 @@ class Final(nn.Module):
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Fresh weights from the CPU ``generator``, in module order, equal
-    on every device: glorot uniform conv and transposed-conv kernels
-    (flax's ``glorot_uniform`` law), PReLU 0.25, BN scale 1 and bias 0,
-    running mean 0 and variance 1."""
+    """Fresh weights for ``model`` (a whole model or one of its modules)
+    from the CPU ``generator``, in module order, equal on every device:
+    glorot uniform conv and transposed-conv kernels (flax's
+    ``glorot_uniform`` law) and zero conv biases, PReLU 0.25, BN scale 1
+    and bias 0, running mean 0 and variance 1. Clears the weight packs
+    of ``model`` and of the model that built packs from it."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (Conv, ConvTranspose)):
-                w = torch.empty(m.weight.shape)
+            weight = getattr(m, "weight", None)
+            if isinstance(weight, nn.Parameter) and weight.dim() == 4:
+                w = torch.empty(weight.shape)
                 nn.init.xavier_uniform_(w, generator=generator)
-                m.weight.copy_(w)
+                weight.copy_(w)
+                if isinstance(getattr(m, "bias", None), nn.Parameter):
+                    m.bias.zero_()
             elif isinstance(m, PReLU):
                 m.alpha.fill_(0.25)
             elif isinstance(m, BatchNorm):
@@ -332,5 +350,7 @@ def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-    if isinstance(model, PackedModel):
-        model.clear_packs()
+    owner = _PACK_OWNERS.get(model)
+    for packed in (model, owner() if owner is not None else None):
+        if isinstance(packed, PackedModel):
+            packed.clear_packs()

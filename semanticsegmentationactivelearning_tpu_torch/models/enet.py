@@ -61,6 +61,9 @@ class ENet(PackedModel):
     # fused_score computes the acquisition score without full-resolution
     # logits (train/steps.make_score_step takes it)
     supports_fused_scoring = True
+    # the output layer that train/checkpoint.reinitialize_final_layer
+    # draws anew (the -r flag)
+    output_module = "Final"
 
     def __init__(self, num_classes: int,
                  drop_rates: Sequence[float] = (0.01, 0.1, 0.1, 0.1, 0.1),

@@ -194,6 +194,9 @@ class ICNet(PackedModel):
     uses_dropout = False
     # cascade label guidance weights: (1/4 main, 1/8 aux, 1/16 aux)
     ms_loss_weights = (1.0, 0.4, 0.4)
+    # the output layer that train/checkpoint.reinitialize_final_layer
+    # draws anew (the -r flag)
+    output_module = "Classifier"
 
     def __init__(self, num_classes: int):
         super().__init__()

@@ -36,6 +36,8 @@ from . import nn as xops
 EPSILON = float(np.finfo(np.float32).tiny)
 
 MEASURES = ("entropy", "margin", "confidence")
+# the Monte-Carlo measures: BALD, not ported yet (ROADMAP.md Queue 1 item 8)
+MC_MEASURES = ("bald",)
 
 
 def confidence_map(logits: torch.Tensor, measure: str,

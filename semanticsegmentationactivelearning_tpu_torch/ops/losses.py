@@ -70,9 +70,13 @@ def masked_softmax_cross_entropy(labels: torch.Tensor, logits: torch.Tensor,
         w_class = 1.0 / torch.log(weight + (_EULER - weight) * p_class)
         loss = loss * w_class
 
-    # two-phase reduction (losses.py:63-73)
+    # two-phase reduction (losses.py:63-73). A batch with no pixel in
+    # the mask (in the AL loop: a tail batch of pseudo-labelled rows of
+    # which no pixel clears the threshold) has a loss of 0, where the
+    # JAX package's 0 / 0 gives NaN, which the update spreads to every
+    # weight; with one pixel or more the divisor is the mask's sum
     loss = loss.sum(dim=0)
-    return (loss / mask.sum()).sum()
+    return (loss / mask.sum().clamp(min=1.0)).sum()
 
 
 def _nearest_resize_2d(x: torch.Tensor, out_hw: Tuple[int, int]

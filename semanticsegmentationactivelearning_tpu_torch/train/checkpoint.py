@@ -14,11 +14,14 @@ kind, or of a checkpoint written by the JAX package (through
 either kind, or from a JAX checkpoint's weights, step and epoch with a
 fresh optimizer: optax's moments are one raveled ``optax.flatten``
 buffer that maps onto no ``torch.optim`` state.
+:func:`reinitialize_final_layer` draws the output layer anew (the AL
+CLI's ``-r``).
 
 The manager keeps the reference's protocol: ``save(prefix, state)``
 writes ``{prefix}-{N}.ckpt``; ``cache(state)`` then ``commit(prefix)``
 write a ``tmp`` file each epoch and promote it only when the caller saw
-an improvement; ``chdir`` moves to an AL round's directory; the FIFO
+an improvement; ``chdir`` moves to an AL round's directory; ``wait``
+joins the write in flight; the FIFO
 keeps ``max_to_keep`` files; ``checkpoint.json`` holds the list, the
 latest and the save counter; ``async_io`` writes on one background
 thread that ``close()`` joins.
@@ -216,7 +219,8 @@ class CheckpointManager:
                 max_workers=1, thread_name_prefix="ckpt-io")
         self._pending = self._pool.submit(fn, *args)
 
-    def _join(self) -> None:
+    def wait(self) -> None:
+        """Wait for the write in flight (and re-raise its error)."""
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
@@ -224,7 +228,7 @@ class CheckpointManager:
     def close(self) -> None:
         """Wait for the write in flight and stop the writer thread."""
         try:
-            self._join()
+            self.wait()
         finally:
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
@@ -278,7 +282,7 @@ class CheckpointManager:
     def cache(self, state) -> str:
         """Write the epoch's state to the ``tmp`` file
         (checkpoint_manager.py:22-33)."""
-        self._join()  # one write in flight at most
+        self.wait()  # one write in flight at most
         self._cached = os.path.join(self._directory, "tmp" + CKPT_EXT)
         self._run(_write, self._cached, self._snapshot(state))
         return self._cached
@@ -289,7 +293,7 @@ class CheckpointManager:
         (checkpoint_manager.py:35-73)."""
         if self._cached is None:
             return self.latest_checkpoint
-        self._join()  # the cached file must exist before the rename
+        self.wait()  # the cached file must exist before the rename
         target = self._next_path(prefix)
         os.replace(self._cached, target)
         self._cached = None
@@ -303,7 +307,7 @@ class CheckpointManager:
     def save(self, prefix: str, state) -> str:
         """Unconditional numbered save (checkpoint_manager.py:95-105; the
         train CLI's save after every epoch)."""
-        self._join()  # the job in flight reads the FIFO
+        self.wait()  # the job in flight reads the FIFO
         target = self._next_path(prefix)
         victim = self._push(target)
 
@@ -323,7 +327,7 @@ class CheckpointManager:
         checkpoint_manager.py:75-86): drops an uncommitted cache, keeps
         the save counter, and adopts the directory's ``checkpoint.json``
         so a re-entered round continues its counter and FIFO."""
-        self._join()
+        self.wait()
         if self._cached is not None and os.path.exists(self._cached):
             os.remove(self._cached)
         self._cached = None
@@ -331,3 +335,24 @@ class CheckpointManager:
         self._directory = directory
         os.makedirs(directory, exist_ok=True)
         self._load_state_file()
+
+
+def reinitialize_final_layer(state, model: nn.Module,
+                             generator: torch.Generator):
+    """Fresh glorot-uniform weights for the model's output layer
+    (``model.output_module``: "Final" on ENet, "Classifier" on ICNet)
+    from the CPU ``generator``, the AL CLI's ``-r`` transfer option
+    (active_learning.py:461-462, 905-910). Like the JAX function, which
+    replaces ``params[head]`` alone, it leaves every other weight, the
+    BN statistics, the optimizer's state, the step and the epoch as
+    they were; the packs built from the old layer are cleared
+    (``blocks.reset_parameters``). Returns ``state``."""
+    from ..models.blocks import reset_parameters
+    head = getattr(model, "output_module", None)
+    if head is None or not isinstance(getattr(model, head, None),
+                                      nn.Module):
+        raise KeyError(f"Cannot reinitialize output layer: model "
+                       f"{type(model).__name__} declares output_module="
+                       f"{head!r}")
+    reset_parameters(getattr(model, head), generator)
+    return state

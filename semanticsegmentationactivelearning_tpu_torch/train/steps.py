@@ -6,7 +6,9 @@
   conf asks for them) -> masked CE or multiscale CE, plus the L1/L2
   regularization -> backward -> optimizer and scheduler step. The
   running BN statistics move in the forward, as flax's mutable
-  ``batch_stats`` do.
+  ``batch_stats`` do. With ``pseudo_cfg`` (the AL loop's rounds after
+  the first) the unlabelled rows' targets are first pseudo-annotated
+  (:func:`pseudo_targets`).
 - ``eval_step`` (:func:`make_eval_step`): the eval forward -> argmax ->
   batch confusion matrix.
 - ``predict_step`` (:func:`make_predict_step`): the eval forward ->
@@ -19,9 +21,9 @@ adds nothing to the loss or the metrics. PyTorch runs eagerly, so each
 step is a plain closure over the model. The JAX steps take phase logits
 (``Final(phase=True)``); their docstrings hold that the confusion counts
 equal those of the plain logits for ENet, so these take the plain ones.
-Not ported: the pseudo-label path of the train step (the
-``active_learning`` slice, ROADMAP.md Queue 1 item 7), grouped dispatch,
-remat and the mesh (ROADMAP.md "Not to port", Queue 1 items 9-10).
+Not ported: grouped dispatch, remat and the mesh (ROADMAP.md "Not to
+port", Queue 1 items 9-10), and the MC-dropout and embedding steps of
+BALD and core-set selection (Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -59,6 +61,28 @@ def create_train_state(model, optimizer, scheduler,
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
 
 
+def pseudo_targets(model, batch: Dict[str, torch.Tensor],
+                   pseudo_cfg: Dict[str, Any], num_classes: int):
+    """The pseudo-labelling step's targets (active_learning.py:231-269,
+    the JAX ``make_train_step``'s ``pseudo_cfg`` path): a no-dropout
+    eval forward of ``batch["image_raw"]`` on the current weights and
+    running BN statistics, ``acquisition.pseudo_annotate`` at the
+    conf's measure and threshold, the pseudo mask times ``valid``; then
+    a row keeps its own label and mask where ``batch["labelled"]`` and
+    takes the pseudo ones elsewhere. Returns (int64 label, mask)."""
+    valid = batch["valid"].float()[:, None, None]
+    mask = batch["mask"] * valid
+    with torch.no_grad():
+        logits = model(batch["image_raw"], training=False)
+        p_label, p_mask, _ = acquisition.pseudo_annotate(
+            logits, pseudo_cfg["measure"], num_classes,
+            pseudo_cfg["threshold"])
+        labelled = batch["labelled"].bool()[:, None, None]
+        label = torch.where(labelled, batch["label"], p_label.long())
+        mask = torch.where(labelled, mask, (p_mask * valid).to(mask.dtype))
+    return label, mask
+
+
 def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
                     pseudo_cfg: Optional[Dict[str, Any]] = None):
     """The supervised train step:
@@ -76,12 +100,17 @@ def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
                         ``ms_loss_weights``, where it has them, weigh the
                         multiscale heads)
     :param hyperparams: the conf's ``hyperparams`` block (C22 schema)
-    :param pseudo_cfg:  the AL pseudo-labelling path, not ported yet
+    :param pseudo_cfg:  ``{"measure", "threshold"}`` enables the AL
+                        pseudo-labelling path (:func:`pseudo_targets`);
+                        ``batch`` then also holds ``image_raw``, the
+                        undistorted crop, and the rows' bool
+                        ``labelled`` flags
     """
-    if pseudo_cfg is not None:
+    if pseudo_cfg is not None \
+            and pseudo_cfg["measure"] not in acquisition.MEASURES:
         raise NotImplementedError(
-            "the pseudo-label train step belongs to the active_learning "
-            "CLI's slice, not ported yet: ROADMAP.md Queue 1 item 7")
+            f"pseudo-labelling by {pseudo_cfg['measure']!r} is not ported "
+            "yet: ROADMAP.md Queue 1 item 8")
     softmax_cfg = hyperparams.get("softmax", {})
     reg_cfg = hyperparams.get("weight_reg", {})
     multiscale = bool(softmax_cfg.get("multiscale", False))
@@ -96,8 +125,11 @@ def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, Any]:
         m = state.model
-        label = batch["label"]
-        mask = batch["mask"] * batch["valid"].float()[:, None, None]
+        if pseudo_cfg is not None:
+            label, mask = pseudo_targets(m, batch, pseudo_cfg, num_classes)
+        else:
+            label = batch["label"]
+            mask = batch["mask"] * batch["valid"].float()[:, None, None]
         outputs = m(batch["image"], training=True, multiscale=multiscale,
                     generator=generator)
         if multiscale:

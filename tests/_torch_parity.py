@@ -206,30 +206,70 @@ def train_batch(seed=3):
             "valid": np.ones(2)}
 
 
+def pseudo_batch(seed=5):
+    """The pseudo-labelling step's float64 batch of 3 at TRAIN_HW: the
+    undistorted crops ``image_raw`` beside the images, the rows'
+    ``labelled`` flags (yes, no, no) and ``valid`` (1, 1, 0)."""
+    rng = np.random.default_rng(seed)
+    b = {"image": rng.uniform(size=(3, *TRAIN_HW, 3)),
+         "image_raw": rng.uniform(size=(3, *TRAIN_HW, 3)),
+         "label": rng.integers(0, TRAIN_C, (3, *TRAIN_HW)).astype(np.int32),
+         "mask": (rng.uniform(size=(3, *TRAIN_HW)) > 0.1).astype(np.float64),
+         "valid": np.array([1.0, 1.0, 0.0]),
+         "labelled": np.array([True, False, False])}
+    return b
+
+
 def port_train_batch(b, dtype=torch.float64):
-    return {"image": torch.from_numpy(b["image"]).to(dtype),
-            "label": torch.from_numpy(b["label"]).long(),
-            "mask": torch.from_numpy(b["mask"]).to(dtype),
-            "valid": torch.from_numpy(b["valid"]).to(dtype)}
+    out = {"image": torch.from_numpy(b["image"]).to(dtype),
+           "label": torch.from_numpy(b["label"]).long(),
+           "mask": torch.from_numpy(b["mask"]).to(dtype),
+           "valid": torch.from_numpy(b["valid"]).to(dtype)}
+    if "image_raw" in b:
+        out["image_raw"] = torch.from_numpy(b["image_raw"]).to(dtype)
+        out["labelled"] = torch.from_numpy(b["labelled"])
+    return out
+
+
+def pseudo_cfg():
+    """The entropy measure at the median confidence of the unlabelled
+    valid row of ``pseudo_batch()`` under the seeded weights (float64),
+    so that half its pixels take a pseudo label: the seeded ENet's
+    confidences sit far under the confs' 0.9."""
+    from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
+    model = seeded_port_enet(TRAIN_C, 0, multiscale_heads=False).double()
+    with torch.no_grad():
+        logits = model(port_train_batch(pseudo_batch())["image_raw"][1:2])
+    conf = acquisition.confidence_map(logits, "entropy", TRAIN_C)
+    # an even count of pixels: the mean of the two middle ones, no pixel's
+    return {"measure": "entropy",
+            "threshold": float(np.quantile(conf.numpy(), 0.5))}
 
 
 _JAX_TRAIN_STEPS = {}
 
 
-def jax_train_step(multiscale):
+def jax_train_step(multiscale, pseudo=False):
     """The JAX step's outputs in float64, computed once a case:
     ((metrics, gradients, new BN statistics), the initial flax
-    variables)."""
-    if multiscale not in _JAX_TRAIN_STEPS:
-        _JAX_TRAIN_STEPS[multiscale] = _run_jax_train_step(multiscale)
-    return _JAX_TRAIN_STEPS[multiscale]
+    variables). With ``pseudo``, the pseudo-labelling step on
+    ``pseudo_batch()`` at ``pseudo_cfg()``; its metrics also hold the
+    mixed targets (``mixed_label``, ``mixed_mask``), computed as the
+    JAX step computes them (train/steps.py:172-186)."""
+    if (multiscale, pseudo) not in _JAX_TRAIN_STEPS:
+        _JAX_TRAIN_STEPS[multiscale, pseudo] = _run_jax_train_step(
+            multiscale, pseudo)
+    return _JAX_TRAIN_STEPS[multiscale, pseudo]
 
 
-def _run_jax_train_step(multiscale):
+def _run_jax_train_step(multiscale, pseudo):
+    from semanticsegmentationactivelearning_tpu.ops import (
+        acquisition as jax_acquisition)
     model = seeded_port_enet(TRAIN_C, 0,
                              multiscale_heads=multiscale).double()
     variables = flax_variables(model)
-    batch = train_batch()
+    batch = pseudo_batch() if pseudo else train_batch()
+    cfg = pseudo_cfg() if pseudo else None
     keep_grads = optax.GradientTransformation(
         lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
         lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
@@ -238,29 +278,51 @@ def _run_jax_train_step(multiscale):
                      dtype=jnp.float64)
         body = jax_make_train_step(jm, keep_grads, TRAIN_C,
                                    train_hyperparams(multiscale),
-                                   _body_only=True)
+                                   pseudo_cfg=cfg, _body_only=True)
+
+        def fn(state, batch, key):
+            new, metrics = body(state, batch, key)
+            if cfg is None:
+                return new, metrics
+            logits = jm.apply({"params": state.params,
+                               "batch_stats": state.batch_stats},
+                              batch["image_raw"], training=False)
+            p_label, p_mask, _ = jax_acquisition.pseudo_annotate(
+                logits, cfg["measure"], TRAIN_C, cfg["threshold"])
+            labelled = batch["labelled"][:, None, None]
+            valid = batch["valid"][:, None, None]
+            return new, dict(
+                metrics,
+                mixed_label=jnp.where(labelled, batch["label"], p_label),
+                mixed_mask=jnp.where(labelled, batch["mask"] * valid,
+                                     p_mask * valid))
+
         state = JaxTrainState(
             params=variables["params"],
             batch_stats=variables["batch_stats"],
             opt_state=keep_grads.init(variables["params"]),
             step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
         key = jax.random.PRNGKey(0)
-        new, metrics = fast_jit(body, state, batch, key)(state, batch, key)
+        new, metrics = fast_jit(fn, state, batch, key)(state, batch, key)
         out = jax.tree_util.tree_map(
             np.asarray, (metrics, new.opt_state, new.batch_stats))
     return out, variables
 
 
-def port_train_step(multiscale, opt="SGD", lr=5e-4, dtype=torch.float64):
-    """One step of the port on the seeded ENet and ``train_batch()``:
+def port_train_step(multiscale, opt="SGD", lr=5e-4, dtype=torch.float64,
+                    pseudo=False):
+    """One step of the port on the seeded ENet and ``train_batch()``
+    (with ``pseudo``: the pseudo-labelling step on ``pseudo_batch()``):
     (the state after it, its metrics)."""
     model = seeded_port_enet(TRAIN_C, 0,
                              multiscale_heads=multiscale).to(dtype)
     hp = train_hyperparams(multiscale, opt, lr)
     optimizer, scheduler = optim.make_optimizer(model.parameters(), hp)
     state = steps.create_train_state(model, optimizer, scheduler)
-    step = steps.make_train_step(model, TRAIN_C, hp)
-    metrics = step(state, port_train_batch(train_batch(), dtype))
+    step = steps.make_train_step(model, TRAIN_C, hp,
+                                 pseudo_cfg=pseudo_cfg() if pseudo else None)
+    batch = pseudo_batch() if pseudo else train_batch()
+    metrics = step(state, port_train_batch(batch, dtype))
     return state, metrics
 
 
@@ -275,10 +337,10 @@ def optax_updated(variables, grads, tx):
             np.asarray, jax.jit(apply)(grads, variables["params"]))
 
 
-def check_sgd_step(multiscale):
+def check_sgd_step(multiscale, pseudo=False):
     """One SGD step of the port against the JAX step's."""
-    (want, grads, new_stats), variables = jax_train_step(multiscale)
-    state, got = port_train_step(multiscale)
+    (want, grads, new_stats), variables = jax_train_step(multiscale, pseudo)
+    state, got = port_train_step(multiscale, pseudo=pseudo)
     assert state.step == 1
     for k in ("loss", "cost"):
         np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-5)
