@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's ENet and ICNet serving and
-pool-scoring paths, of ENet's training and active-learning loop and of
+pool-scoring paths, of ENet's training, active-learning loop (BALD and
+core-set acquisition too) and of
 its measurement rigs on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
@@ -172,6 +173,26 @@ Phases (any failure raises, so the exit code is not 0):
         kernel may launch) and -c <the first round's best> -r;
         state.json, the records' keys, the round directories, the
         kernels' launches and each round's al_timing.
+  12. secondary acquisition, ENet-19 at the BALD conf's shape (batch 8,
+     512x1024, mc_passes 8), plain PyTorch with cuDNN (the JAX package
+     reaches no Pallas kernel here):
+     a. the MC-dropout BALD step (train/steps.make_mc_score_step) on the
+        card against the port's CPU step on the same weights, images,
+        pool indices and key, hence the same masks (ops.nn.MCDropout's
+        hash), at TF32 off and on: each image's score within MC_TOL
+        (the CPU scores the first two images alone), and masks of
+        another key must move a score by more than the bound; then the
+        MC pool pass's images/s on the device (the passes stacked as
+        one batch), the embed pass's, a forward's masks drawn a call a
+        block (as MCDropout draws them) and in one go, and the MC pass
+        under torch.profiler;
+     b. ops.selection.k_center_greedy on the card at Cityscapes' pool
+        size (N 2975, D 128, k 50, 50 centers) against a numpy oracle:
+        the picks equal; its time;
+     c. the AL CLI in two child processes side by side, one round each
+        with the BALD and the core-set conf cut as in 11c: state.json,
+        the records (al_confidence, al_coreset, al_timing), the log
+        lines, no entropy score kernel launched, the card in use.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}. Neither this process nor its child
 processes (the record writer and the CLI) import JAX or the JAX package;
@@ -1127,9 +1148,10 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_chain(label: str, fn, x) -> None:
+def profile_chain(label: str, fn, x) -> float:
     """Phase 6 for one chain: ``fn(x)`` twice to warm up, then
-    PROFILE_BATCHES times under torch.profiler."""
+    PROFILE_BATCHES times under torch.profiler. Returns the device-busy
+    share."""
     for _ in range(WARMUP):
         fn(x)
     torch.cuda.synchronize()
@@ -1156,6 +1178,7 @@ def profile_chain(label: str, fn, x) -> None:
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / PROFILE_BATCHES / 1e3:9.3f} ms/batch  "
               f"{100 * us / total:5.1f}%  {name}")
+    return busy_us(intervals) / wall_us
 
 
 def where_the_time_goes(seed: int) -> None:
@@ -2555,6 +2578,303 @@ def run_al_cli(seed: int, rec: str) -> dict:
     return timings
 
 
+# phase 12: secondary acquisition (ENet-19 at the BALD conf's shape: batch
+# 8, 512x1024 crops, mc_passes 8; core-set at Cityscapes' pool size)
+SECONDARY_CONFS = {
+    "bald": "conf/enet_cityscapes_active_learning_bald.json",
+    "coreset": "conf/enet_cityscapes_active_learning_coreset.json"}
+MC_PASSES = 8   # the BALD conf's mc_passes
+MC_CPU = 2      # 12a: the CPU step scores the first MC_CPU images alone
+# 12a's bounds on |card - CPU| per image score, by the card's precision
+# ("fp32": TF32 off; "default": cuDNN convs in TF32, what the CLI runs).
+# Read at seed 0 (PERF.md, §6): 6.0e-8 and 6.6e-7. The bound is phase
+# 5's per-image score bound, twice that in TF32: a 2x2 pool window whose
+# top two values nearly tie may take another switch on the card than on
+# the CPU (ROADMAP Queue 3), and its unpooled pixels move an image's mean
+# by up to ~5e-5. Masks drawn from another key must move some score by
+# more than the fp32 bound, so that the gate sees a wrong mask.
+MC_TOL = {"fp32": SCORE_TOL, "default": 2 * SCORE_TOL}
+# 12b: Cityscapes' 2975 training images, ENet's 128-wide embedding, a
+# round's 50 picks from 50 labelled centers
+KC_N, KC_D, KC_K, KC_CENTERS = 2975, 128, 50, 50
+AL_SECONDARY_KEYS = {
+    "al_coreset": {"split", "round", "selected", "min_dist_mean",
+                   "min_dist_max", "wall_time"},
+    **AL_RECORD_KEYS}
+
+
+def mc_images(seed: int):
+    """12a's uint8 batch (SN x SH x SW), its pool indices and key."""
+    rng = np.random.default_rng(seed + 60)
+    stack = rng.integers(0, 256, (SN, SH, SW, 3), dtype=np.uint8)
+    return torch.from_numpy(stack), np.arange(100, 100 + SN), (seed + 11, 0)
+
+
+def check_mc_step(seed: int) -> dict:
+    """Phase 12a: the MC-dropout BALD step on the card against the
+    port's CPU step on the same weights, images, indices and key (the
+    masks are ``ops.nn.MCDropout``'s integer hash, the same bits on both
+    devices), at both precisions; the CPU scores the first MC_CPU images
+    alone, which the step's per-image masks allow. Returns the errors."""
+    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+        make_mc_score_step)
+    model = score_model(seed, FINAL_SCALE)
+    stack, index, key = mc_images(seed)
+    image = stack.float() / 255.0
+    t0 = time.perf_counter()
+    want = make_mc_score_step(copy.deepcopy(model).cpu(), CLASSES,
+                              MC_PASSES)({"image": image[:MC_CPU]}, key,
+                                         index[:MC_CPU])
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for precision in ("fp32", "default"):
+        set_precision(precision)
+        got = make_mc_score_step(model, CLASSES, MC_PASSES)(
+            {"image": image.cuda()}, key, torch.as_tensor(index).cuda())
+        got = got.cpu()
+        errs[precision] = float((got[:MC_CPU] - want).abs().max())
+        print(f"mc 12a ({precision}): scores {got.numpy().round(6)}; the "
+              f"CPU's {want.numpy().round(6)} ({cpu_s:.1f} s); max |card "
+              f"- CPU| {errs[precision]:.3e} (bound {MC_TOL[precision]})")
+        if got.shape != (SN,) or not torch.isfinite(got).all() \
+                or not ((got > 0) & (got <= 1)).all() \
+                or errs[precision] > MC_TOL[precision]:
+            set_precision("fp32")
+            raise AssertionError(f"the card's MC step ({precision}) "
+                                 "disagrees with the CPU's")
+    set_precision("fp32")
+    other = make_mc_score_step(model, CLASSES, MC_PASSES)(
+        {"image": image[:MC_CPU].cuda()}, (seed + 12, 0),
+        torch.as_tensor(index[:MC_CPU]).cuda()).cpu()
+    moved = float((other - want).abs().max())
+    print(f"mc 12a: masks of another key move the scores by {moved:.3e}")
+    # the passes disagree (the score is not the clip's constant 1), and
+    # the gate would see masks drawn from another key
+    if not (want < 1 - 1e-4).all() or moved <= MC_TOL["fp32"]:
+        raise AssertionError("12a: the MC passes agree everywhere, or "
+                             "another key's masks hide under the bound")
+    return errs
+
+
+def device_ips(fn, stacks) -> float:
+    """Images/s of ``fn(stack)`` over uint8 ``stacks`` on the card: the
+    median of CUDA-event times after WARMUP."""
+    times = []
+    for stack in stacks:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(stack)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = float(np.median([s.elapsed_time(e) for s, e in times[WARMUP:]]))
+    return 1e3 * stacks[0].shape[0] / ms
+
+
+def mask_draw_ms(model, index: torch.Tensor) -> dict:
+    """12a: the MC masks of one stacked forward (MC_PASSES x SN rows),
+    drawn as ``ops.nn.MCDropout`` draws them, a call a dropout block,
+    and in one go over all of the forward's slots (then sliced): ms,
+    median of REPS after one, CUDA events."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.nn import (
+        MCDropout)
+    widths = [m.exp_bn.weight.numel() for m in model.modules()
+              if getattr(m, "drop_rate", 0.0) > 0.0]
+
+    def a_call_a_block():
+        masks = MCDropout((0, 0), index, range(MC_PASSES))
+        for c in widths:
+            masks.uniform(masks.offset, c)
+            masks.offset += c
+
+    def one_go():
+        MCDropout((0, 0), index, range(MC_PASSES)).uniform(0, sum(widths))
+
+    out = {}
+    for label, fn in (("a call a block", a_call_a_block),
+                      ("one go", one_go)):
+        ms = []
+        for _ in range(1 + REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        out[label] = float(np.median(ms[1:]))
+    print(f"mc 12a: a forward's masks ({len(widths)} dropout blocks, "
+          f"{sum(widths)} slots x {MC_PASSES * SN} rows): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
+
+
+def mc_speed(seed: int) -> dict:
+    """Phase 12a's timing: the MC pool pass on the card (uint8 stacks,
+    /255, the MC step: MC_PASSES x SN images a forward) and the embed
+    pass (12b) in images/s; the masks' draw; then the MC pass under
+    torch.profiler (device-busy share)."""
+    from semanticsegmentationactivelearning_tpu_torch.train.steps import (
+        make_embed_step, make_mc_score_step)
+    model = score_model(seed, FINAL_SCALE)
+    rng = np.random.default_rng(seed + 61)
+    stacks = [torch.from_numpy(rng.integers(0, 256, (SN, SH, SW, 3),
+                                            dtype=np.uint8)).cuda()
+              for _ in range(POOL_BATCHES)]
+    index = torch.arange(SN, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        step = make_mc_score_step(model, CLASSES, MC_PASSES)
+
+        def mc(s):
+            return step({"image": s.float().div_(255.0)}, (seed + 11, 0),
+                        index)
+
+        out["mc"] = device_ips(mc, stacks)
+        embed = make_embed_step(model)
+        out["embed"] = device_ips(
+            lambda s: embed({"image": s.float().div_(255.0)}), stacks)
+        out["masks"] = mask_draw_ms(model, index)
+        out["busy"] = profile_chain(f"bald MC pool pass (batch {SN}, "
+                                    f"{SH}x{SW}, {MC_PASSES} passes "
+                                    f"stacked)", mc, stacks[0])
+    print(f"mc 12a: MC pool pass {out['mc']:.1f} images/s on the device; "
+          f"embed pass {out['embed']:.1f} images/s")
+    return out
+
+
+def kcenter_oracle(emb: np.ndarray, centers: np.ndarray,
+                   candidates: np.ndarray, k: int) -> list:
+    """Greedy k-center in numpy (float64, exact differences)."""
+    e = emb.astype(np.float64)
+    dist = np.full(len(e), np.inf)
+    for c in np.flatnonzero(centers):
+        dist = np.minimum(dist, ((e - e[c]) ** 2).sum(axis=1))
+    dist[~candidates] = -np.inf
+    picks = []
+    for _ in range(k):
+        j = int(np.argmax(dist))
+        picks.append(j)
+        dist = np.minimum(dist, ((e - e[j]) ** 2).sum(axis=1))
+        dist[j] = -np.inf
+    return picks
+
+
+def check_kcenter(seed: int) -> float:
+    """Phase 12b: ``ops.selection.k_center_greedy`` on the card at
+    Cityscapes' pool size against the numpy oracle (the picks equal);
+    its time (median of REPS, CUDA events). Returns ms."""
+    from semanticsegmentationactivelearning_tpu_torch.ops.selection import (
+        k_center_greedy)
+    rng = np.random.default_rng(seed + 70)
+    emb = rng.normal(size=(KC_N, KC_D)).astype(np.float32)
+    centers = np.zeros(KC_N, dtype=bool)
+    centers[rng.choice(KC_N, KC_CENTERS, replace=False)] = True
+    want = kcenter_oracle(emb, centers, ~centers, KC_K)
+    args = (torch.from_numpy(emb).cuda(), torch.from_numpy(centers).cuda(),
+            torch.from_numpy(~centers).cuda(), KC_K)
+    picks, dist = k_center_greedy(*args)
+    got = picks.cpu().tolist()
+    ms = []
+    for _ in range(1 + REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        k_center_greedy(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    ms = float(np.median(ms[1:]))
+    print(f"kcenter 12b: N {KC_N}, D {KC_D}, k {KC_K}, {KC_CENTERS} "
+          f"centers: {ms:.3f} ms (median of {REPS}); picks "
+          f"{'equal' if got == want else 'DIFFER'} to the numpy oracle's "
+          f"(first {got[:5]})")
+    if got != want or picks.device.type != "cuda" \
+            or not torch.isneginf(dist[args[1]]).all():
+        raise AssertionError("k_center_greedy on the card disagrees with "
+                             "the numpy oracle")
+    return ms
+
+
+def run_secondary_cli(seed: int, rec: str, smi_name: str) -> dict:
+    """Phase 12c: the AL CLI in two child processes side by side, one
+    round each with the BALD conf and the core-set conf cut as 11c cuts
+    the AL conf; state.json, the records (al_confidence for BALD,
+    al_coreset for core-set, al_timing), the log lines, no entropy score
+    kernel launched, and the card's memory in use. Returns each run's
+    al_timing record."""
+    port = "semanticsegmentationactivelearning_tpu_torch"
+    after = (
+        "from semanticsegmentationactivelearning_tpu_torch.ops.kernels "
+        "import front, mid, tail\n"
+        "import torch\n"
+        "print('al-kernel-launches:', front.fused_front_stage1.launches, "
+        "mid.fused_mid_stage23.launches, "
+        "tail.fused_tail_entropy_score.launches)\n"
+        "print('al-cuda-bytes:', torch.cuda.max_memory_allocated())\n")
+    logs = {"bald": f"BALD acquisition: {MC_PASSES} MC-dropout passes",
+            "coreset": "Core-set (k-center greedy) selection enabled"}
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {}
+        for name, path in SECONDARY_CONFS.items():
+            with open(path) as fp:
+                conf = json.load(fp)
+            conf["epochs"] = 1
+            conf["hyperparams"]["learning_rate"] = 1e-7
+            conf["active_learning"].update({
+                "iterations": 1, "epochs/warm_up": 0, "num_validation": 4,
+                "num_initially_labelled": 8, "selection_size": 8})
+            cpath = os.path.join(tmp, f"{name}.json")
+            with open(cpath, "w") as fp:
+                json.dump(conf, fp)
+            log = os.path.join(tmp, name)
+            started[name] = log, start_child(
+                f"{port}.active_learning", "cityscapes", "-d", rec, "-l",
+                log, "-p", cpath, "--seed", str(seed), after=after)
+        for name, (log, handle) in started.items():
+            res, secs = wait_child(handle)
+            lines = res.stdout.splitlines()
+            launches = [int(v) for v in [ln for ln in lines if ln.startswith(
+                "al-kernel-launches:")][-1].split()[1:]]
+            cuda_bytes = int([ln for ln in lines if ln.startswith(
+                "al-cuda-bytes:")][-1].split()[1])
+            with open(os.path.join(log, "metrics.jsonl")) as fp:
+                records = [json.loads(ln) for ln in fp]
+            with open(os.path.join(log, "state.json")) as fp:
+                state = json.load(fp)
+            lab = state["dataset"]["train"]["labelled"]
+            unlab = state["dataset"]["train"]["unlabelled"]
+            splits = [r["split"] for r in records]
+            timing = [r for r in records if r["split"] == "al_timing"]
+            timings[name] = timing
+            core = [r for r in records if r["split"] == "al_coreset"]
+            print(f"al 12c ({name}): {secs:.1f} s; iteration "
+                  f"{state['iteration']}, {len(lab)} labelled; records "
+                  f"{sorted(set(splits))}; al_coreset {core}; entropy "
+                  f"kernels launched {launches}; card memory peak "
+                  f"{cuda_bytes / 2 ** 30:.2f} GiB; al_timing "
+                  + ", ".join(f"{k} {timing[0][k]}" for k in (
+                      "train_s", "restore_s", "test_s", "score_select_s",
+                      "round_s")))
+            want_split = "al_confidence" if name == "bald" else "al_coreset"
+            other = "al_coreset" if name == "bald" else "al_confidence"
+            if (state["iteration"] != 1 or len(lab) != 16
+                    or len(set(lab)) != 16 or not set(lab).isdisjoint(unlab)
+                    or sorted(lab + unlab) != list(range(AL_POOL))
+                    or splits.count(want_split) != 1 or other in splits
+                    or len(timing) != 1
+                    or any(set(r) != AL_SECONDARY_KEYS[r["split"]]
+                           for r in records)
+                    or (core and core[0]["selected"] != 8)
+                    or logs[name] not in res.stdout
+                    or f"Running on {smi_name}" not in res.stdout
+                    or launches != [0, 0, 0] or cuda_bytes <= 0):
+                raise AssertionError(f"AL CLI ({name}): not as expected")
+    return timings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2688,7 +3008,18 @@ def main(argv=None) -> int:
             launches[k] += v
         torch.cuda.empty_cache()
         run_al_cli(args.seed, rec)
-    print(f"al: phase 11 in {time.perf_counter() - t11:.1f} s")
+        print(f"al: phase 11 in {time.perf_counter() - t11:.1f} s")
+
+        # 12. secondary acquisition
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        mc_errs = check_mc_step(args.seed)
+        torch.cuda.empty_cache()
+        mc = mc_speed(args.seed)
+        torch.cuda.empty_cache()
+        kc_ms = check_kcenter(args.seed)
+        secondary = run_secondary_cli(args.seed, rec, name)
+    print(f"secondary: phase 12 in {time.perf_counter() - t12:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
@@ -2721,6 +3052,21 @@ def main(argv=None) -> int:
     print(f"al pool pass: {al_ips:.1f} images/s with decode, H2D and "
           f"selection (batch {SN}, {SH}x{SW} crops of 1024x2048 records, "
           f"ENet-{CLASSES}; {smi})")
+    print(f"bald MC pool pass: {mc['mc']:.1f} images/s on the device, "
+          f"device busy {100 * mc['busy']:.1f}% (profiler on); masks a "
+          f"forward " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                          mc["masks"].items())
+          + f"; |card - CPU| fp32 {mc_errs['fp32']:.3e}, TF32 "
+          f"{mc_errs['default']:.3e} (batch {SN}, {SH}x{SW}, {MC_PASSES} "
+          f"passes, ENet-{CLASSES}; {smi})")
+    print(f"coreset: embed pass {mc['embed']:.1f} images/s on the device; "
+          f"k_center_greedy {kc_ms:.3f} ms (N {KC_N}, D {KC_D}, k {KC_K}; "
+          f"{smi})")
+    for conf, timing in secondary.items():
+        print(f"al {conf} round: " + ", ".join(
+            f"{k} {timing[0][k]}" for k in ("train_s", "score_select_s",
+                                            "round_s"))
+            + f" (cut {SECONDARY_CONFS[conf]}, 32 + 4 records; {smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,21 @@ front, mid and tail score kernels) and the lowest-confidence pick
 ``selection_size``; then, for ``-u`` records, the annotation poll and
 the ``state.json`` commit. ``metrics.jsonl`` gets the JAX CLI's
 records: ``al_train_iter``, ``al_train``, ``al_test``,
-``al_confidence`` and ``al_timing`` (each phase's wall seconds).
+``al_confidence`` (or ``al_coreset``) and ``al_timing`` (each phase's
+wall seconds).
+
+The conf's other acquisition strategies:
+
+- ``measure: "bald"`` ranks the pool by ``mc_passes`` (default 8)
+  MC-dropout passes (``make_mc_score_step``, a model with dropout only);
+  the pass's key is ``(seed + 11, round)`` and each image's masks are
+  drawn from it and the image's pool index, so the ranking does not
+  depend on the batching. Pseudo-labelling then takes ``entropy``.
+- ``selection: "coreset"`` embeds the pool (``make_embed_step``) and
+  picks by greedy k-center from the labelled set
+  (:func:`select_coreset`, ``ops.selection.k_center_greedy``), on the
+  embeddings' device; it writes ``al_coreset`` instead of
+  ``al_confidence``.
 
 The pool pass's crops are drawn per example from ``(seed + 13, round,
 index)`` (``pipeline.score_batch_indexed``): they do not depend on the
@@ -37,8 +51,7 @@ batching, but they are not the JAX CLI's crops, whose PRNG stream the
 port does not reproduce, so the two CLIs' scores and selections differ.
 
 Not ported (each raises before any training and names its ROADMAP.md
-item): the ``bald`` measure and ``coreset`` selection (Queue 1 item 8),
-ICNet and bf16 models (item 2), ``--modalities`` (item 7).
+item): ICNet and bf16 models (item 2), ``--modalities`` (item 7).
 ``score_group`` and ``train_group`` are read and ignored: grouped
 dispatch is not ported, and per-example crops make the score the same
 either way. With several GPUs it runs on the first (Queue 1 item 9).
@@ -61,11 +74,13 @@ from .data.device_prefetch import device_prefetch
 from .models import get_model
 from .ops import acquisition
 from .ops import metrics as xmetrics
+from .ops import selection
 from .train import checkpoint as ckpt
 from .train import config as conf
 from .train import optim
 from .train.__main__ import _not_ported, _on_device, run_eval_epoch
-from .train.steps import (create_train_state, make_eval_step,
+from .train.steps import (create_train_state, make_embed_step,
+                          make_eval_step, make_mc_score_step,
                           make_score_step, make_train_step)
 from .utils import cli, images
 
@@ -212,14 +227,14 @@ def rank_plan(train_loader, batch_size: int, in_hw, bucket_conf="auto"):
         channels=train_loader.channels, with_label=False))]
 
 
-def score_pool(score_step, plan, num_examples: int, pass_key, crop_hw,
-               channels: int, device, desc: str = "ranking") -> np.ndarray:
+def pool_outputs(step, plan, pass_key, crop_hw, channels: int, device,
+                 desc: str):
     """The pool pass (active_learning.py:682-715): every record of
     ``plan`` (:func:`rank_plan`) through ``device_prefetch``,
     ``pipeline.score_batch_indexed`` (the undistorted crop, drawn per
-    example from ``pass_key`` and its index) and ``score_step``.
-    Returns the float32 ``[num_examples]`` confidences; the scores stay
-    on the device until the pass ends."""
+    example from ``pass_key`` and its index) and ``step({"image",
+    "index"})``, ``index`` being the records' pool indices. Returns
+    ``[(outputs on the device, index, valid)]`` a batch."""
     def stream():
         for idx, ld in plan:
             yield from ld.batches(idx)
@@ -231,12 +246,60 @@ def score_pool(score_step, plan, num_examples: int, pass_key, crop_hw,
         raw = pipeline.score_batch_indexed(
             b["stack"], b["heights"], b["widths"], pass_key, b["index"],
             crop_hw, channels)
-        pending.append((score_step({"image": raw}), b["index"],
-                        b["valid"]))
+        pending.append((step({"image": raw, "index": b["index"]}),
+                        b["index"], b["valid"]))
+    return pending
+
+
+def score_pool(score_step, plan, num_examples: int, pass_key, crop_hw,
+               channels: int, device, desc: str = "ranking") -> np.ndarray:
+    """The pool pass's scores (:func:`pool_outputs`) as the float32
+    ``[num_examples]`` confidences; they stay on the device until the
+    pass ends."""
     confidence = np.zeros(num_examples, dtype=np.float32)
-    for scores, idx, val in pending:
+    for scores, idx, val in pool_outputs(score_step, plan, pass_key,
+                                         crop_hw, channels, device, desc):
         confidence[idx[val]] = scores.cpu().numpy()[val]
     return confidence
+
+
+def embed_pool(embed_step, plan, num_examples: int, pass_key, crop_hw,
+               channels: int, device, desc: str = "embedding"
+               ) -> torch.Tensor:
+    """The pool pass's embeddings (:func:`pool_outputs`) as a float32
+    ``[num_examples, D]`` tensor on ``device``, assembled there."""
+    emb = None
+    for out, idx, val in pool_outputs(embed_step, plan, pass_key, crop_hw,
+                                      channels, device, desc):
+        if emb is None:
+            emb = torch.zeros(num_examples, out.shape[1],
+                              dtype=torch.float32, device=out.device)
+        rows = torch.as_tensor(idx[val], device=out.device)
+        emb[rows] = out[torch.as_tensor(np.flatnonzero(val),
+                                        device=out.device)].float()
+    return emb
+
+
+def select_coreset(embeddings: torch.Tensor, labelled_flags: np.ndarray,
+                   unlabelled: np.ndarray, selection_size: int):
+    """Greedy k-center picks of up to ``selection_size`` unlabelled
+    examples from the labelled set (active_learning.py:906-960), on the
+    embeddings' device. ``k_center_greedy`` runs at ``max(k,
+    selection_size)`` and is sliced to ``k``: its picks are
+    prefix-stable. Returns (picked indices, the unlabelled examples'
+    squared distances to the labelled set)."""
+    k = int(np.minimum(len(unlabelled), selection_size))
+    if k <= 0 or embeddings is None:
+        return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float32)
+    candidates = np.zeros(len(labelled_flags), dtype=bool)
+    candidates[unlabelled] = True
+    dev = embeddings.device
+    picks, min_dist = selection.k_center_greedy(
+        embeddings, torch.as_tensor(labelled_flags, device=dev),
+        torch.as_tensor(candidates, device=dev),
+        max(k, int(selection_size)))
+    return (picks.cpu().numpy().astype(np.int64)[:k],
+            min_dist.cpu().numpy()[unlabelled])
 
 
 def select_lowest(confidence: np.ndarray, unlabelled: np.ndarray,
@@ -267,16 +330,16 @@ def _check_ported(args, params) -> None:
                           "cascade loss)", "2")
     if params["network"].get("dtype") in ("bfloat16", "bf16"):
         raise _not_ported("A bf16 model (network.dtype)", "2")
-    if alparams["measure"] in acquisition.MC_MEASURES:
-        raise _not_ported(f"The {alparams['measure']!r} measure (MC-dropout "
-                          "acquisition)", "8")
+    if alparams["measure"] in acquisition.MC_MEASURES \
+            and not any(params["hyperparams"]["dropout_rates"]):
+        raise ValueError(
+            f"measure {alparams['measure']!r} needs a model with active "
+            f"dropout (MC sampling); {model_name} has none")
     selection_mode = alparams.get("selection", "uncertainty")
     if selection_mode not in ("uncertainty", "coreset"):
         raise ValueError(
             f"active_learning.selection must be 'uncertainty' or "
             f"'coreset', got {selection_mode!r}")
-    if selection_mode == "coreset":
-        raise _not_ported("Core-set selection (k-center greedy)", "8")
 
 
 def main(args) -> int:
@@ -373,12 +436,27 @@ def main(args) -> int:
     # pseudo-labelling needs a per-pixel confidence in the predicted
     # label: with an MC ranking measure it takes the entropy
     measure = alparams["measure"]
-    pseudo_cfg = {"measure": "entropy" if measure in acquisition.MC_MEASURES
-                  else measure, "threshold": alparams["threshold"]}
+    mc_measure = measure in acquisition.MC_MEASURES
+    pseudo_cfg = {"measure": "entropy" if mc_measure else measure,
+                  "threshold": alparams["threshold"]}
     train_step = make_train_step(model, num_classes, hparams,
                                  pseudo_cfg=pseudo_cfg)
     eval_step = make_eval_step(model, num_classes)
-    score_step = make_score_step(model, num_classes, measure)
+    if mc_measure:
+        mc_passes = int(alparams.get("mc_passes", 8))
+        logger.info("BALD acquisition: %d MC-dropout passes", mc_passes)
+        mc_step = make_mc_score_step(model, num_classes, mc_passes)
+
+        def score_step(batch):
+            # the round's key; each image's masks follow its pool index
+            return mc_step(batch, (args.seed + 11, state["iteration"]),
+                           batch["index"])
+    else:
+        score_step = make_score_step(model, num_classes, measure)
+    selection_mode = alparams.get("selection", "uncertainty")
+    if selection_mode == "coreset":
+        logger.info("Core-set (k-center greedy) selection enabled")
+        embed_step = make_embed_step(model)
     ckpt_manager = ckpt.CheckpointManager(args.log_dir, async_io=True)
     writer = cli.MetricsWriter(args.log_dir,
                                tensorboard=getattr(args, "tensorboard",
@@ -569,7 +647,25 @@ def main(args) -> int:
             t0 = time.time()
             train_sampler.set_indices(None)
             train_sampler.set_sample_size(0)
-            if alparams["selection_size"] > 0:
+            if alparams["selection_size"] > 0 and selection_mode == "coreset":
+                emb = embed_pool(
+                    embed_step, plan, len(train_examples),
+                    (args.seed + 13, state["iteration"]), in_hw,
+                    in_channels, device, "embedding[%d]" % len(labelled))
+                low_conf, min_dists = select_coreset(
+                    emb, labelled_flags, unlabelled,
+                    alparams["selection_size"])
+                # finite only: with no centers the distances are inf,
+                # which json.dump would write as the non-JSON Infinity
+                finite = min_dists[np.isfinite(min_dists)]
+                writer.write({
+                    "split": "al_coreset", "round": state["iteration"],
+                    "selected": int(len(low_conf)),
+                    "min_dist_mean": float(finite.mean())
+                    if len(finite) else None,
+                    "min_dist_max": float(finite.max())
+                    if len(finite) else None})
+            elif alparams["selection_size"] > 0:
                 confidence = score_pool(
                     score_step, plan, len(train_examples),
                     (args.seed + 13, state["iteration"]), in_hw,

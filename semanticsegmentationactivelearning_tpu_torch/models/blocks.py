@@ -11,9 +11,11 @@ uses its running statistics and no dropout is applied. In training,
 batch norm normalises with the batch's statistics and updates its
 running ones as flax does (momentum 0.9, the biased variance), and the
 bottlenecks apply spatial dropout at their ``drop_rate`` with the
-caller's ``torch.Generator``. The TPU-only pieces of the JAX blocks (the
-``conv_impl`` shifted-matmul lowering, bf16 compute and phase-domain
-logits) are not ported.
+caller's ``torch.Generator``. Given an ``ops.nn.MCDropout`` as the
+generator in eval, they apply its masks at their ``drop_rate`` and batch
+norm keeps its running statistics (MC dropout). The TPU-only pieces of
+the JAX blocks (the ``conv_impl`` shifted-matmul lowering, bf16 compute
+and phase-domain logits) are not ported.
 """
 
 from __future__ import annotations

@@ -32,8 +32,14 @@ fourth, Bottleneck5_*: the fifth), drawing from ``g``. A model built
 with ``multiscale_heads`` holds the multiscale loss heads
 ``MultiscaleHead_{0,1,2}`` (1x1 no-bias convs to the classes over
 B5_1, B4_2 and B3_8), which ``forward(..., multiscale=True)`` returns
-beside the logits. ``return_embedding`` belongs to the core-set slice
-and is not ported yet (ROADMAP Queue 1 item 8).
+beside the logits.
+
+MC dropout (the BALD measure): ``forward(x, generator=masks)`` with an
+``ops.nn.MCDropout`` in eval applies each bottleneck's dropout from
+``masks`` while batch norm stays on its running statistics.
+``forward(x, return_embedding=True)`` returns the mean over H and W of
+B3_8's output in float32, ``[N, 128]``, the pool embedding of core-set
+selection.
 """
 
 from __future__ import annotations
@@ -61,6 +67,10 @@ class ENet(PackedModel):
     # fused_score computes the acquisition score without full-resolution
     # logits (train/steps.make_score_step takes it)
     supports_fused_scoring = True
+    # forward(return_pre_logits=True) gives the half-res features whose
+    # classifier is Final.deconv: the MC-dropout score step streams the
+    # T full-res probability maps in row chunks
+    supports_pre_logits = True
     # the output layer that train/checkpoint.reinitialize_final_layer
     # draws anew (the -r flag)
     output_module = "Final"
@@ -127,15 +137,18 @@ class ENet(PackedModel):
                 multiscale: bool = False,
                 generator: Optional[torch.Generator] = None,
                 return_stage1: bool = False, return_stage4: bool = False,
-                return_pre_logits: bool = False):
+                return_pre_logits: bool = False,
+                return_embedding: bool = False):
         """``x`` NHWC float -> float32 logits ``[N, H, W, classes]``;
         with ``multiscale`` ``(logits, (logits, head0(B5_1),
         head1(B4_2), head2(B3_8)))``, the multiscale loss's heads; with
         ``return_stage1`` the stage-1 features and switches, with
         ``return_stage4`` the stage-4 features and the B1_0 switches
         (the decoder score kernel's inputs), with ``return_pre_logits``
-        the B5_1 output that the Final layer takes. ``training`` and
-        ``generator``: see the module docstring."""
+        the B5_1 output that the Final layer takes, with
+        ``return_embedding`` B3_8's output averaged over H and W, float32
+        ``[N, 128]``. ``training`` and ``generator``: see the module
+        docstring."""
         if multiscale and not self.multiscale_heads:
             raise ValueError("multiscale needs a model built with "
                              "multiscale_heads=True")
@@ -146,6 +159,8 @@ class ENet(PackedModel):
         if return_stage1:
             return h, switches1
         y, switches2 = self.forward_stage23(h, t, g)
+        if return_embedding:
+            return y.float().mean(dim=(1, 2))
         f4 = self.forward_stage4(y, switches2, t, g)
         if return_stage4:
             return f4, switches1

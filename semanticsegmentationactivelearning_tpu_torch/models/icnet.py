@@ -218,11 +218,14 @@ class ICNet(PackedModel):
 
     def forward(self, x: torch.Tensor, multiscale: bool = False,
                 return_pre_logits: bool = False,
-                return_features8: bool = False):
+                return_features8: bool = False,
+                return_embedding: bool = False):
         """``x`` NHWC float -> float32 logits ``[N, H, W, classes]``;
         with ``multiscale`` also ``(cls4, aux8, aux16)``; with
         ``return_features8`` the CFF2 output, with ``return_pre_logits``
-        the 1/4-res classifier logits."""
+        the 1/4-res classifier logits, with ``return_embedding`` the CFF2
+        output averaged over H and W, float32 ``[N, 128]`` (the pool
+        embedding of core-set selection)."""
         _, h, w, _ = x.shape
         if h % 32 or w % 32:
             raise ValueError(
@@ -232,6 +235,8 @@ class ICNet(PackedModel):
         f2 = self.SharedStem(x_half)
         fused16, aux16 = self._cff1(f2)
         fused8, aux8 = self.CFF2(fused16, f1)
+        if return_embedding:
+            return fused8.float().mean(dim=(1, 2))
         if return_features8:
             return fused8
         cls4 = self.head_pre_logits(fused8)

@@ -18,8 +18,10 @@ kernels of ``ops/kernels`` (ENet's tail, decoder and deconv; ICNet's
 CFF2 + head and head); the other measures take
 :func:`chunked_deconv_mean_confidence` (ENet) and
 :func:`chunked_upsample_mean_confidence` (ICNet), as the JAX package
-leaves them to XLA. The Monte-Carlo measure (BALD) is not ported yet
-(ROADMAP.md Queue 1 item 8).
+leaves them to XLA. The Monte-Carlo measure (BALD) scores T MC-dropout
+passes: :func:`bald_confidence_map`, :func:`mean_bald_confidence` and,
+for ENet's pre-logits, :func:`chunked_deconv_bald_confidence`; none of
+them reaches a Pallas kernel in the JAX package either.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ from . import nn as xops
 EPSILON = float(np.finfo(np.float32).tiny)
 
 MEASURES = ("entropy", "margin", "confidence")
-# the Monte-Carlo measures: BALD, not ported yet (ROADMAP.md Queue 1 item 8)
+# Monte-Carlo measures need several stochastic forwards per image and a
+# key; they are acquisition-only (pseudo-labelling falls back to
+# "entropy": a per-pixel MI is not a confidence in the predicted label)
 MC_MEASURES = ("bald",)
 
 
@@ -139,6 +143,62 @@ def chunked_upsample_mean_confidence(logits_low: torch.Tensor, scale: int,
         conf = confidence_map(up[:, scale:-scale], measure, num_classes)
         sums += conf.sum(dim=(1, 2))
     return sums / float(hl * scale * wl * scale)
+
+
+def bald_confidence_map(probs_t: torch.Tensor,
+                        num_classes: int) -> torch.Tensor:
+    """Per-pixel BALD confidence ``[B,H,W]`` from T MC-dropout
+    probability maps ``[T,B,H,W,C]``: ``1 - I(y; w | x) / log C`` with
+    ``I = H(E_t[p_t]) - E_t[H(p_t)]`` (Houlsby et al., arXiv:1112.5745),
+    both entropies normalised by ``log C`` and the difference clipped to
+    [0, 1], which by Jensen's inequality only guards rounding."""
+    probs_t = probs_t.float()
+    log_c = math.log(num_classes)
+    ent_t = -torch.sum(probs_t * torch.log(probs_t + EPSILON), dim=-1)
+    mean_ent = ent_t.mean(dim=0) / log_c
+    mean_p = probs_t.mean(dim=0)
+    pred_ent = -torch.sum(mean_p * torch.log(mean_p + EPSILON),
+                          dim=-1) / log_c
+    return 1.0 - torch.clamp(pred_ent - mean_ent, 0.0, 1.0)
+
+
+def mean_bald_confidence(logits_t: torch.Tensor,
+                         num_classes: int) -> torch.Tensor:
+    """Per-image mean BALD confidence ``[B]`` from stacked MC logits
+    ``[T,B,H,W,C]`` (the scoring tail of a model without pre-logits)."""
+    probs_t = torch.softmax(logits_t.float(), dim=-1)
+    return bald_confidence_map(probs_t, num_classes).mean(dim=(1, 2))
+
+
+def chunked_deconv_bald_confidence(features_t: torch.Tensor,
+                                   kernel: torch.Tensor, num_classes: int,
+                                   chunk: int = 8) -> torch.Tensor:
+    """The BALD scoring tail of ENet's pre-logits as plain PyTorch: the
+    T passes' half-res features ``[T,N,H2,W2,cin]`` through the Final
+    3x3/s2 transposed conv -> softmax -> per-pixel mutual information
+    -> per-image mean, over row chunks, so that only a
+    ``[T,N,2*chunk+4,W,C]`` window of the T full-res probability maps
+    is live at a time. The halo arithmetic is
+    :func:`chunked_deconv_mean_confidence`'s.
+
+    :param kernel: ``[3, 3, cin, C]`` flax ConvTranspose kernel
+    :returns: ``[N]`` mean confidence (float32)
+    """
+    t, n, h2, w2, cin = features_t.shape
+    if h2 % chunk != 0:
+        # one chunk if the height doesn't divide evenly
+        chunk = h2
+    padded = F.pad(features_t, (0, 0, 0, 0, 1, 1))
+    sums = torch.zeros(n, dtype=torch.float32, device=features_t.device)
+    for i in range(h2 // chunk):
+        rows = padded[:, :, i * chunk:i * chunk + chunk + 2]
+        logits = conv_transpose_same(
+            rows.reshape(t * n, chunk + 2, w2, cin), kernel)[:, 2:-2]
+        probs = torch.softmax(logits.float(), dim=-1)
+        conf = bald_confidence_map(probs.reshape(t, n, *probs.shape[1:]),
+                                   num_classes)
+        sums += conf.sum(dim=(1, 2))
+    return sums / float(h2 * 2 * w2 * 2)
 
 
 def pseudo_annotate(logits: torch.Tensor, measure: str, num_classes: int,

@@ -10,7 +10,7 @@ that position and zeros elsewhere.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,13 +107,77 @@ def same_pads(size: int, k: int, stride: int, dilation: int = 1
     return total // 2, total - total // 2
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash of ``x`` in ``[0, 2**32)``, an int or an
+    int64 tensor (xor-shift and multiply rounds whose products stay
+    below 2**63), the same bits on every device."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _M32
+    return x ^ (x >> 16)
+
+
+class MCDropout:
+    """The spatial-dropout keep masks of MC-dropout passes: pass it as a
+    model's ``generator`` in eval (``training=False``) and every
+    bottleneck applies dropout at its rate while batch norm stays on
+    its running statistics (the JAX blocks' dropout under a "dropout"
+    rng with ``training=False``).
+
+    The batch holds ``len(passes)`` copies of ``N`` images stacked pass
+    first: row ``j * N + i`` is image ``i`` in pass ``passes[j]``. Each
+    dropout call takes the next ``C`` channel slots, and a slot's
+    uniform is a hash of ``(key, index[i], pass, slot)``: an image's
+    masks depend on the key, the index the caller gives it and the
+    pass, not on the rest of the batch or the device. Each call draws
+    its own slots: ENet's 27 draws a forward take over ten times the
+    time of one draw of its 2720 slots, but the device stays busy 97%
+    of the MC pass, so the launches overlap its work (PERF.md, §6)."""
+
+    def __init__(self, key, index: torch.Tensor, passes):
+        key = key if isinstance(key, (tuple, list)) else (key,)
+        h = 0x9E3779B9
+        for k in key:
+            h = _mix32(h ^ (int(k) & _M32))
+        index = index.to(torch.int64) & _M32
+        passes = torch.as_tensor(list(passes), dtype=torch.int64,
+                                 device=index.device)
+        rows = _mix32(_mix32(h ^ index)[None, :] ^ (passes[:, None] + 1))
+        self.rows = rows.reshape(-1, 1)
+        self.offset = 0
+
+    def uniform(self, start: int, count: int) -> torch.Tensor:
+        """Float32 uniforms in [0, 1), ``[rows, count]``, of slots
+        ``start..start+count``."""
+        slots = torch.arange(start, start + count, dtype=torch.int64,
+                             device=self.rows.device)
+        h = _mix32(self.rows ^ _mix32(slots)[None, :])
+        return (h >> 8).to(torch.float32) * 2.0 ** -24
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        c = x.shape[-1]
+        u = self.uniform(self.offset, c)
+        self.offset += c
+        keep = 1.0 - rate
+        mask = (u < keep).reshape(x.shape[0], 1, 1, c)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def spatial_dropout(x: torch.Tensor, rate: float,
-                    generator: Optional[torch.Generator] = None,
-                    training: bool = True) -> torch.Tensor:
+                    generator=None, training: bool = True) -> torch.Tensor:
     """Channel-wise spatial dropout with noise shape ``[N,1,1,C]``.
-    Identity in eval or at rate 0; serving never calls it with
-    ``training=True``."""
-    if not training or rate <= 0.0:
+    Identity at rate 0 and in eval, unless ``generator`` is an
+    :class:`MCDropout`, whose masks it then applies; serving never calls
+    it with either."""
+    if rate <= 0.0:
+        return x
+    if isinstance(generator, MCDropout):
+        return generator(x, rate)
+    if not training:
         return x
     keep = 1.0 - rate
     noise = torch.rand((x.shape[0], 1, 1, x.shape[-1]),

@@ -15,6 +15,10 @@
   argmax labels (the image summaries).
 - ``score_step`` (:func:`make_score_step`): the AL loop's pool-scoring
   hot path (reference active_learning.py:697-698).
+- ``mc_score_step`` (:func:`make_mc_score_step`): the BALD measure's
+  pool score from MC-dropout passes.
+- ``embed_step`` (:func:`make_embed_step`): the pool embeddings of
+  core-set selection.
 
 Every step consumes the batch's ``valid`` flags, so a padded tail batch
 adds nothing to the loss or the metrics. PyTorch runs eagerly, so each
@@ -22,8 +26,7 @@ step is a plain closure over the model. The JAX steps take phase logits
 (``Final(phase=True)``); their docstrings hold that the confusion counts
 equal those of the plain logits for ENet, so these take the plain ones.
 Not ported: grouped dispatch, remat and the mesh (ROADMAP.md "Not to
-port", Queue 1 items 9-10), and the MC-dropout and embedding steps of
-BALD and core-set selection (Queue 1 item 8).
+port", Queue 1 items 9-10).
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..ops import acquisition, losses, metrics
+from ..ops import nn as xops
+from ..ops.kernels import packing
 
 
 @dataclasses.dataclass
@@ -108,9 +113,11 @@ def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
     """
     if pseudo_cfg is not None \
             and pseudo_cfg["measure"] not in acquisition.MEASURES:
-        raise NotImplementedError(
-            f"pseudo-labelling by {pseudo_cfg['measure']!r} is not ported "
-            "yet: ROADMAP.md Queue 1 item 8")
+        # a per-pixel MI is no confidence in the predicted label: the AL
+        # CLI pseudo-labels by "entropy" under an MC measure
+        raise ValueError(
+            f"pseudo-labelling needs one of {acquisition.MEASURES}, got "
+            f"{pseudo_cfg['measure']!r}")
     softmax_cfg = hyperparams.get("softmax", {})
     reg_cfg = hyperparams.get("weight_reg", {})
     multiscale = bool(softmax_cfg.get("multiscale", False))
@@ -211,3 +218,63 @@ def make_score_step(model, num_classes: int, measure: str,
         return acquisition.mean_confidence(logits, measure, num_classes)
 
     return score_step
+
+
+def make_embed_step(model
+                    ) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+    """Pool-embedding step of core-set selection: ``embed_step(batch)
+    -> [N, D]`` float32, the eval forward to the model's deepest shared
+    features averaged over H and W (``return_embedding=True``: ENet's
+    B3_8, ICNet's CFF2 output), for ``batch = {"image": float NHWC}``
+    on the model's device. The embeddings feed
+    ``ops.selection.k_center_greedy``."""
+    model.eval()
+
+    @torch.inference_mode()
+    def embed_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return model(batch["image"], return_embedding=True)
+
+    return embed_step
+
+
+def make_mc_score_step(model, num_classes: int, passes: int):
+    """MC-dropout BALD pool scorer (the measure ``"bald"``):
+    ``mc_score_step(batch, key, index) -> [N]`` float32 per-image mean
+    ``1 - I(y; w | x) / log C`` for ``batch = {"image": float NHWC}`` on
+    the model's device, a key (an int or a tuple of ints) and the
+    images' ``[N]`` integer indices.
+
+    It runs ``passes`` eval forwards with dropout on and batch norm on
+    its running statistics (``ops.nn.MCDropout``: each image's masks
+    depend only on the key, its index and the pass, so a score does not
+    depend on the rest of the batch), stacked as one batch of ``passes
+    * N`` images (eval keeps no activations), then, for a model with
+    pre-logits (ENet), the chunked BALD tail on the Final's kernel
+    (``acquisition.chunked_deconv_bald_confidence``), else
+    ``acquisition.mean_bald_confidence`` on the logits."""
+    use_features = getattr(model, "supports_pre_logits", False)
+    model.eval()
+
+    @torch.inference_mode()
+    def mc_score_step(batch: Dict[str, torch.Tensor], key,
+                      index) -> torch.Tensor:
+        image = batch["image"]
+        n = image.shape[0]
+        masks = xops.MCDropout(key, torch.as_tensor(index,
+                                                    device=image.device),
+                               range(passes))
+        x = image.repeat(passes, 1, 1, 1)
+        if use_features:
+            out = model(x, generator=masks, return_pre_logits=True)
+        else:
+            out = model(x, generator=masks)
+        out = out.reshape(passes, n, *out.shape[1:])
+        if use_features:
+            kernel = model.packed(
+                "final", image.device,
+                lambda m: packing.deconv_hwio(m.Final.deconv))
+            return acquisition.chunked_deconv_bald_confidence(
+                out, kernel, num_classes)
+        return acquisition.mean_bald_confidence(out, num_classes)
+
+    return mc_score_step

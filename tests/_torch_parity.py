@@ -21,14 +21,39 @@ from semanticsegmentationactivelearning_tpu_torch.train import (bridge,
                                                                  optim, steps)
 
 
+def _drawn_variables(model, x, seed, rngs=("params", "dropout")):
+    """A flax ``{"params", "batch_stats"}`` tree of ``model`` at input
+    ``x``'s shape, drawn with numpy (``seed``) by flax's initial laws:
+    glorot-uniform kernels, zero biases, PReLU alpha 0.25, BN scale 1,
+    bias 0, mean 0 and variance 1. The tree's structure comes from
+    ``jax.eval_shape`` of ``model.init``, a trace without the compile
+    (tens of seconds for ENet or ICNet) that a jitted init takes."""
+    shapes = jax.eval_shape(
+        lambda x: model.init({r: jax.random.PRNGKey(0) for r in rngs}, x,
+                             training=False),
+        jax.ShapeDtypeStruct(np.shape(x), jnp.float32))
+    # a stream apart from the BN noise the callers draw from ``seed``
+    rng = np.random.default_rng([seed, 1])
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            *window, fan_in, fan_out = leaf.shape
+            receptive = int(np.prod(window)) if window else 1
+            limit = np.sqrt(6.0 / (receptive * (fan_in + fan_out)))
+            return rng.uniform(-limit, limit, leaf.shape).astype(np.float32)
+        fill = {"alpha": 0.25, "scale": 1.0, "var": 1.0}.get(name, 0.0)
+        return np.full(leaf.shape, fill, np.float32)
+
+    return {k: jax.tree_util.tree_map_with_path(draw, shapes[k])
+            for k in ("params", "batch_stats")}
+
+
 def noised_variables(model, x, seed):
-    """flax init plus |N(0, 0.3)| on every BatchNorm statistic (the
-    recipe of tests/test_pallas_kernels.py)."""
-    # jitted: eager flax init of the whole ENet takes tens of seconds
-    v = jax.jit(lambda x: model.init(
-        {"params": jax.random.PRNGKey(seed),
-         "dropout": jax.random.PRNGKey(seed + 1)}, x, training=False))(
-            jnp.asarray(x))
+    """ENet's variables by flax's initial laws (:func:`_drawn_variables`)
+    plus |N(0, 0.3)| on every BatchNorm statistic (the recipe of
+    tests/test_pallas_kernels.py)."""
+    v = _drawn_variables(model, x, seed)
     return {"params": v["params"],
             "batch_stats": noised_stats(v["batch_stats"], seed)}
 
@@ -54,14 +79,14 @@ def port_model(variables, num_classes):
 
 
 def icnet_variables(num_classes, hw, seed):
-    """A JAX ICNet and its variables: flax init (jitted) plus N(0, 0.1) on
-    every BatchNorm mean and |N(0, 0.3)| on every variance. ENet's
-    recipe (|N| on the means too) leaves ICNet's ReLU outputs all zero
-    after a few blocks, which would make every comparison vacuous."""
+    """A JAX ICNet and its variables by flax's initial laws
+    (:func:`_drawn_variables`) plus N(0, 0.1) on every BatchNorm mean and
+    |N(0, 0.3)| on every variance. ENet's recipe (|N| on the means too)
+    leaves ICNet's ReLU outputs all zero after a few blocks, which would
+    make every comparison vacuous."""
     model = JaxICNet(num_classes=num_classes)
-    v = jax.jit(lambda x: model.init({"params": jax.random.PRNGKey(seed)},
-                                     x, training=False))(
-        jnp.zeros((1, *hw, 3), jnp.float32))
+    v = _drawn_variables(model, np.zeros((1, *hw, 3), np.float32), seed,
+                         rngs=("params",))
     rng = np.random.default_rng(seed)
 
     def noise(path, a):

@@ -22,10 +22,17 @@ the baseline and ``-r`` runs hold 4 records out for it.
 - ``-c <round 1's best> -r``: the output layer drawn anew;
 - the size buckets of a mixed-size pool leave the scores and the
   selection unchanged;
+- one round with the BALD measure (``mc_passes`` 3) and one with
+  core-set selection, checked as tests/test_active_learning_cli.py
+  checks the root CLI's (the log lines, ``state.json``'s labelled set
+  grown by the selection size without repeats, one ``al_confidence``
+  or one ``al_coreset`` record), and the BALD measure's ``ValueError``
+  on a model without active dropout (all ``dropout_rates`` 0);
 - the default ``--device cuda`` raises without a card, and each conf
-  and flag that is not ported raises and names its ROADMAP item.
+  and flag that is not ported raises and names its ROADMAP item (ICNet
+  with either of the two acquisition strategies too).
 
-Measured: about 12 s on one process.
+Measured: about 19 s on one process.
 """
 
 import ast
@@ -225,7 +232,7 @@ def test_records_match_the_root_cli(rounds):
                          "al_confidence", "al_timing", "al_coreset"}
     assert want["al_timing"] >= {"train_s", "restore_s", "test_s",
                                  "score_select_s", "round_s"}
-    # al_coreset is core-set selection's, which raises in the port
+    # al_coreset is core-set selection's (test_coreset_round)
     assert {r["split"] for r in records} == set(want) - {"al_coreset"}
     for r in records:
         assert set(r) == want[r["split"]], r["split"]
@@ -314,9 +321,63 @@ def test_default_device_needs_a_card(records, tmp_path):
         al.main(args)
 
 
+def _one_round(records, tmp_path, caplog, **over):
+    log = tmp_path / "log"
+    with caplog.at_level("INFO"):
+        assert _run(records, log, _conf(str(tmp_path), "one", 1,
+                                        num_validation=0, **over)) == 0
+    state = _state(log)
+    lab = state["dataset"]["train"]["labelled"]
+    assert state["iteration"] == 1
+    assert len(lab) == 7 and len(set(lab)) == 7
+    assert set(lab).isdisjoint(state["dataset"]["train"]["unlabelled"])
+    return caplog.text, _records(log)
+
+
+def test_bald_round(records, tmp_path, caplog):
+    want = _root_cli_records()
+    text, records_ = _one_round(records, tmp_path, caplog,
+                                active_learning__measure="bald",
+                                active_learning__mc_passes=3)
+    assert "BALD acquisition: 3 MC-dropout passes" in text
+    hists = [r for r in records_ if r["split"] == "al_confidence"]
+    assert len(hists) == 1 and sum(hists[0]["histogram"]) == 12
+    assert 0.0 < hists[0]["mean"] <= 1.0
+    assert "al_coreset" not in {r["split"] for r in records_}
+    for r in records_:
+        assert set(r) == want[r["split"]], r["split"]
+
+
+def test_coreset_round(records, tmp_path, caplog):
+    want = _root_cli_records()
+    text, records_ = _one_round(records, tmp_path, caplog,
+                                active_learning__selection="coreset")
+    assert "Core-set (k-center greedy) selection enabled" in text
+    core = [r for r in records_ if r["split"] == "al_coreset"]
+    assert len(core) == 1 and core[0]["selected"] == 3
+    assert set(core[0]) == want["al_coreset"]
+    assert 0.0 < core[0]["min_dist_mean"] <= core[0]["min_dist_max"]
+    assert "al_confidence" not in {r["split"] for r in records_}
+
+
+def test_bald_needs_active_dropout(records, tmp_path):
+    log = tmp_path / "l"
+    args = al.parse_args(["cityscapes", "-d", str(records), "-l", str(log),
+                          "-p", _conf(str(tmp_path), "n",
+                                      active_learning__measure="bald",
+                                      hyperparams__dropout_rates=[0.0] * 5),
+                          "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs a model with active "
+                                         "dropout"):
+        al.main(args)
+    assert not log.exists()
+
+
 @pytest.mark.parametrize("over,extra,item", [
-    ({"active_learning__measure": "bald"}, [], "item 8"),
-    ({"active_learning__selection": "coreset"}, [], "item 8"),
+    ({"network__model": "ICNet", "active_learning__measure": "bald"}, [],
+     "item 2"),
+    ({"network__model": "ICNet", "active_learning__selection": "coreset"},
+     [], "item 2"),
     ({"network__model": "ICNet"}, [], "item 2"),
     ({"network__dtype": "bfloat16"}, [], "item 2"),
     ({}, ["-m", "rgb", "nir"], "item 7")])

@@ -25,6 +25,17 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 C = 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     x = np.random.default_rng(0).uniform(size=(1, 64, 64, 3)) \

@@ -16,7 +16,9 @@ the grid, the expand fed from the 3x3's accumulators, the two kernels
 tile by tile) and hold it to the model's own blocks, hold the kernels'
 plain parts, composed, to the plain front, pin the premise of the x1
 precision gate and its control, and hold the front's CPU path on both
-routes to the JAX package's Pallas front in interpret mode.
+routes to the JAX package's stage-1 forward (the Pallas front's own
+reference; test_torch_kernels.py holds the port to the Pallas front in
+interpret mode).
 
 Tolerance: packed weights exact; a rebuilt piece against the model's
 atol = rtol = 1e-5 (the same products summed in another order); the
@@ -34,7 +36,6 @@ import torch.nn.functional as F
 import jax.numpy as jnp
 
 from semanticsegmentationactivelearning_tpu.models import ENet as JaxENet
-from semanticsegmentationactivelearning_tpu.ops import pallas_kernels
 from semanticsegmentationactivelearning_tpu_torch.models import ENet, blocks
 from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
 from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
@@ -49,6 +50,17 @@ PACK_F = 27648  # csrc/front.cu PACK_F
 B10 = ((1, 64, 8), (9, 8, 8), (1, 8, 64))    # (taps, k, n): PROJ, CONV, EXP
 BLOCK = ((1, 64, 16), (9, 16, 16), (1, 16, 64))
 NAMES = ["Bottleneck1_0"] + [f"Bottleneck1_{i}" for i in range(1, 5)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _model(seed=0):
@@ -426,25 +438,26 @@ def _window_gap(x):
 
 @pytest.fixture(scope="module")
 def jax_front():
-    """The Pallas W-packed front in interpret mode on a seeded image
-    (W/4 a multiple of 8, as its W-packing needs), with the port's model
-    on the same converted weights and Initial's output for the gaps."""
+    """The JAX ENet's stage-1 forward (``return_stage1``, the plain
+    reference that tests/test_pallas_kernels.py holds the Pallas front
+    to; test_torch_kernels.py holds the port to the Pallas front itself
+    in interpret mode) on a seeded image, with the port's model on the
+    same converted weights and Initial's output for the gaps."""
     jm = JaxENet(num_classes=5)
     x = np.random.default_rng(22).uniform(size=(1, 32, 64, 3)) \
         .astype(np.float32)
     variables = noised_variables(jm, x, 21)
-    x1, mask1 = pallas_kernels.fused_front_stage1_w(
-        jnp.asarray(x), pallas_kernels.pack_enet_front_w(variables),
-        interpret=True, out_dtype=jnp.float32)
+    x1, switches = jm.apply(variables, jnp.asarray(x), training=False,
+                            return_stage1=True)
     tm = port_model(variables, 5)
     with torch.no_grad():
         h0 = tm.Initial(torch.from_numpy(x)).numpy()
-    return tm, x, np.asarray(x1), np.asarray(mask1), h0
+    return tm, x, np.asarray(x1), np.asarray(switches), h0
 
 
 @pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
 def test_cpu_path_matches_pallas_front(jax_front, score):
-    tm, x, want_x1, want_mask, h0 = jax_front
+    tm, x, want_x1, want_switches, h0 = jax_front
     x1, mask1 = front.fused_front_stage1(torch.from_numpy(x), tm,
                                          score=score)
     assert x1.shape == mask1.shape == (1, 8, 16, 64)
@@ -452,5 +465,5 @@ def test_cpu_path_matches_pallas_front(jax_front, score):
     decided = _window_gap(h0) > 1e-4
     assert decided.mean() > 0.9
     sw = mask1.numpy().reshape(1, 8, 16, 4, 16).argmax(3)
-    want_sw = want_mask.reshape(1, 8, 16, 4, 16).argmax(3)
+    want_sw = want_switches.reshape(1, 8, 16, 16)
     np.testing.assert_array_equal(sw[decided], want_sw[decided])

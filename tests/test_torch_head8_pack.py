@@ -59,6 +59,17 @@ HEAD8_W = torch.tensor([[14, 18, 0], [10, 22, 0], [7, 24, 1], [5, 24, 3],
                        dtype=torch.float32) / 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _model(seed=1, classes=C):
     m = ICNet(classes)
     m.load_state_dict(seeded_state_dict(m, seed, 5.0, "ICNet"))

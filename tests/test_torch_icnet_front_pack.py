@@ -14,22 +14,27 @@ unpack the records and hold them to the model's folded weights
 rebuild both kernels tile by tile in torch and hold them to the plain
 Branch1 and stem at ragged shapes, pin the premise of the precision gate
 on f1 and stem1 (chip_smoke.py PRECISION_GATE), and hold the CPU path on
-both routes to the JAX package's Pallas front kernels in interpret mode.
+both routes to the JAX ICNet's plain front, the Pallas front kernels'
+reference (tests/test_torch_icnet_kernels.py holds the port to the
+Pallas kernels themselves in interpret mode).
 
 Tolerances: records exact; a rebuilt conv or tile against the model's
 atol = rtol = 1e-5 (the same products summed in another order), the
-rebuilt half-res image 1e-6; the CPU path against the Pallas kernels
+rebuilt half-res image 1e-6; the CPU path against the JAX front
 rtol 1e-4 / atol 1e-5 (x_half 1e-5 / 1e-6), as
-tests/test_torch_icnet_kernels.py holds them."""
+tests/test_torch_icnet_kernels.py holds it to the Pallas kernels."""
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+import flax.linen as flax_nn
 import jax.numpy as jnp
 
-from semanticsegmentationactivelearning_tpu.ops import pallas_kernels
+from semanticsegmentationactivelearning_tpu.models import ICNet as JaxICNet
+from semanticsegmentationactivelearning_tpu.models.icnet import (
+    _resize_bilinear)
 from semanticsegmentationactivelearning_tpu_torch.models import ICNet
 from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
 from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
@@ -47,6 +52,17 @@ NAMES = ("Branch1_1", "Branch1_2", "Branch1_3", "SharedStem.conv1_1",
 # the kernels' tiles: Branch1 and conv1_3 + pool in eighth-res positions,
 # conv1_1 + conv1_2 in quarter-res ones
 B1_TILE, STEM12_TILE, STEM3_TILE = (4, 8), (16, 32), (8, 8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _model(seed=1):
@@ -345,7 +361,7 @@ def test_both_routes_take_the_plain_path_on_the_cpu(model):
 
 
 def _variables(model):
-    """The Pallas packers' inputs from the port's weights."""
+    """The JAX ICNet's front variables from the port's weights."""
     def conv_bn(cbn):
         return ({"conv": {"kernel": packing.hwio(cbn.conv).numpy()},
                  "bn": {"scale": cbn.bn.weight.detach().numpy(),
@@ -364,22 +380,33 @@ def _variables(model):
     return {"params": params, "batch_stats": stats}
 
 
+def _jax_front(mdl, x):
+    """Branch1, the half-res image and the stem's front (conv1_1 s2 ->
+    conv1_2 -> conv1_3 -> 3x3/s2 max pool) of the JAX ICNet: the plain
+    reference that tests/test_icnet.py holds the Pallas front kernels
+    to."""
+    f1 = mdl.branch1_3(mdl.branch1_2(mdl.branch1_1(x, False), False), False)
+    x_half = _resize_bilinear(x, (x.shape[1] // 2, x.shape[2] // 2))
+    s = mdl.stem.conv1_3(mdl.stem.conv1_2(mdl.stem.conv1_1(x_half, False),
+                                          False), False)
+    return f1, x_half, flax_nn.max_pool(s, (3, 3), strides=(2, 2),
+                                        padding="SAME")
+
+
 @pytest.mark.parametrize("score", [False, True], ids=["predict", "score"])
 def test_cpu_path_matches_pallas(model, score):
-    """64x96: a 2-tile grid of the Pallas front kernels, ragged against
-    the port's tiles; both entries on the route."""
+    """64x96: ragged against the port's tiles; both entries on the
+    route, against the JAX ICNet's plain front (the Pallas front kernels'
+    reference; tests/test_torch_icnet_kernels.py holds the port to the
+    Pallas kernels themselves in interpret mode)."""
     x = _image((1, 64, 96, 3), 2 + score)
-    variables = _variables(model)
-    j = jnp.asarray(x.numpy())
-    f1, x_half = pallas_kernels.fused_icnet_front(
-        j, pallas_kernels.pack_icnet_front(variables), interpret=True)
-    f1s, stem1 = pallas_kernels.fused_icnet_front_stem(
-        j, pallas_kernels.pack_icnet_front_stem(variables), interpret=True)
+    f1, x_half, stem1 = JaxICNet(num_classes=19).apply(
+        _variables(model), jnp.asarray(x.numpy()), method=_jax_front)
     got_f1, got_xh = icnet_front.fused_icnet_front(x, model, score=score)
     got_f1s, got_st = icnet_front.fused_icnet_front_stem(x, model,
                                                          score=score)
     assert np.asarray(stem1).max() > 0.1
-    for got, want in ((got_f1, f1), (got_f1s, f1s), (got_st, stem1)):
+    for got, want in ((got_f1, f1), (got_f1s, f1), (got_st, stem1)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-5)
     np.testing.assert_allclose(got_xh.numpy(), np.asarray(x_half), rtol=1e-5,

@@ -46,6 +46,17 @@ FEATURE_TOL = dict(rtol=1e-4, atol=1e-5)
 SCORE_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jm, v = icnet_variables(C, HW, 1)

@@ -39,6 +39,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, C = 32, 64, 19
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_state():
     """A JAX TrainState for ENet-19 with noised BatchNorm statistics."""

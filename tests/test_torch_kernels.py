@@ -30,6 +30,17 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 C = 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def window_gap(x):
     """Top-2 gap of every 2x2 pool window: [N,H,W,C] -> [N,H/2,W/2,C]."""
     n, h, w, c = x.shape

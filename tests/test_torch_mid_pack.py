@@ -44,6 +44,17 @@ T = 16  # the kernels' tile side
 BLOCKS = [f"Bottleneck{s}_{i}" for s in (2, 3) for i in range(1, 9)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _model(seed=0):
     """An ENet with numpy-seeded weights and noised BN statistics."""
     m = ENet(19)

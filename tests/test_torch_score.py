@@ -2,7 +2,7 @@
 plain versions of the three score kernels (ops/kernels/tail.py,
 decoder.py, deconv_score.py) against the Pallas kernels in interpret
 mode, ``ENet.fused_score`` on each route against the JAX
-``fused_score``, and ``make_score_step`` against the JAX
+``fused_score``'s plain reference (``use_pallas=False``), and ``make_score_step`` against the JAX
 ``make_score_step``, on the same numpy-seeded inputs and converted
 weights (noised BatchNorm statistics, the Final kernel scaled by 25 on
 both sides so that the scores sit well away from 0), fp32 on the CPU.
@@ -41,6 +41,17 @@ C = 5
 FINAL_SCALE = 25.0
 KERNEL_TOL = dict(rtol=0, atol=1e-5)
 CHAIN_TOL = dict(rtol=0, atol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process while the suite's workers share the
+    cores: with a thread per core in each worker this file's torch work
+    ran tens of times slower than alone. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -213,10 +224,14 @@ ROUTES = [
                          ids=[r[0] for r in ROUTES])
 def test_fused_score_route_matches_jax(setup, monkeypatch, route, shape,
                                        flags, wrapper):
+    # the JAX package's plain score (use_pallas=False, the reference its
+    # own tests hold each route's Pallas chain to): the kernel tests
+    # above hold each plain version to its Pallas kernel in interpret
+    # mode, test_torch_kernels.py the front, test_torch_mid_pack.py the mid
     jm, variables, tm = setup
     x = _image(shape, 11)
     want = jm.fused_score(variables, jnp.asarray(x), "entropy",
-                          use_pallas=True, interpret=True, **flags)
+                          use_pallas=False, **flags)
     mod, name = wrapper
     calls = []
     real = getattr(mod, name)

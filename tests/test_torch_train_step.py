@@ -77,13 +77,14 @@ def test_step_refreshes_the_weight_packs():
 
 def test_pseudo_label_step_names_its_slice():
     """The pseudo-labelling step is ported (``tests/test_torch_al_step.py``
-    holds it to the JAX step); a pseudo measure that is not ported yet
-    (BALD's) raises and names its ROADMAP item."""
+    holds it to the JAX step); a measure that is no per-pixel confidence
+    (BALD's: the AL CLI pseudo-labels by entropy under it) raises and
+    names the measures it takes."""
     model = seeded_port_enet(TRAIN_C, 1, multiscale_heads=False)
     steps.make_train_step(model, TRAIN_C, train_hyperparams(False),
                           pseudo_cfg={"measure": "entropy",
                                       "threshold": 0.9})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="pseudo-labelling needs one of"):
         steps.make_train_step(model, TRAIN_C, train_hyperparams(False),
                               pseudo_cfg={"measure": "bald",
                                           "threshold": 0.9})
