@@ -24,7 +24,8 @@ round's best checkpoint is committed on a validation mIoU gain, or
 every epoch without a validation set), the restore of that checkpoint,
 the test set's metrics, the pool pass (every train record's undistorted
 crop, :func:`score_pool`, through ``make_score_step``: on a card ENet's
-front, mid and tail score kernels) and the lowest-confidence pick
+front, mid and tail score kernels, or ICNet's front + stem and CFF2 +
+head score kernels) and the lowest-confidence pick
 (:func:`select_lowest`), or a random draw for a negative
 ``selection_size``; then, for ``-u`` records, the annotation poll and
 the ``state.json`` commit. ``metrics.jsonl`` gets the JAX CLI's
@@ -35,7 +36,8 @@ wall seconds).
 The conf's other acquisition strategies:
 
 - ``measure: "bald"`` ranks the pool by ``mc_passes`` (default 8)
-  MC-dropout passes (``make_mc_score_step``, a model with dropout only);
+  MC-dropout passes (``make_mc_score_step``; a model without dropout,
+  ICNet, or with every rate 0 raises the JAX CLI's ``ValueError``);
   the pass's key is ``(seed + 11, round)`` and each image's masks are
   drawn from it and the image's pool index, so the ranking does not
   depend on the batching. Pseudo-labelling then takes ``entropy``.
@@ -50,8 +52,10 @@ index)`` (``pipeline.score_batch_indexed``): they do not depend on the
 batching, but they are not the JAX CLI's crops, whose PRNG stream the
 port does not reproduce, so the two CLIs' scores and selections differ.
 
-Not ported (each raises before any training and names its ROADMAP.md
-item): ICNet and bf16 models (item 2), ``--modalities`` (item 7).
+It runs ENet and ICNet (ICNet's rounds train with the conf's loss;
+``"softmax": {"multiscale": true}`` takes its cascade heads). Not ported
+(each raises before any training and names its ROADMAP.md item): bf16
+models (item 2), ``--modalities`` (item 7).
 ``score_group`` and ``train_group`` are read and ignored: grouped
 dispatch is not ported, and per-example crops make the score the same
 either way. With several GPUs it runs on the first (Queue 1 item 9).
@@ -71,7 +75,7 @@ import torch
 
 from .data import loader, pipeline, sampler
 from .data.device_prefetch import device_prefetch
-from .models import get_model
+from .models import conf_model_kwargs, get_model, model_class
 from .ops import acquisition
 from .ops import metrics as xmetrics
 from .ops import selection
@@ -325,13 +329,13 @@ def _check_ported(args, params) -> None:
         raise _not_ported("--modalities (extra input planes; the port's "
                           "Initial takes RGB)", "7")
     model_name = params["network"]["model"]
-    if model_name.lower() != "enet":
-        raise _not_ported(f"Training {model_name} (its train mode and "
-                          "cascade loss)", "2")
     if params["network"].get("dtype") in ("bfloat16", "bf16"):
         raise _not_ported("A bf16 model (network.dtype)", "2")
-    if alparams["measure"] in acquisition.MC_MEASURES \
-            and not any(params["hyperparams"]["dropout_rates"]):
+    # root active_learning.py:341-346: a model without dropout layers
+    # (ICNet) or with every rate 0 has no MC sampling
+    if alparams["measure"] in acquisition.MC_MEASURES and not (
+            getattr(model_class(model_name), "uses_dropout", False)
+            and any(params["hyperparams"]["dropout_rates"])):
         raise ValueError(
             f"measure {alparams['measure']!r} needs a model with active "
             f"dropout (MC sampling); {model_name} has none")
@@ -403,10 +407,9 @@ def main(args) -> int:
                         "(grouped dispatch is not ported)", knob, int(value))
 
     # model, optimizer and state (active_learning.py:293-336)
-    multiscale = bool(hparams["softmax"].get("multiscale", False))
-    model = get_model(params["network"]["model"], num_classes,
-                      drop_rates=tuple(hparams["dropout_rates"]),
-                      multiscale_heads=multiscale).to(device)
+    model_name = params["network"]["model"]
+    model = get_model(model_name, num_classes,
+                      **conf_model_kwargs(model_name, hparams)).to(device)
     # the decay steps: batches an epoch over the initially labelled set
     steps_per_epoch = -(-max(len(labelled), 1) // batch_size)
     optimizer, scheduler = optim.make_optimizer(model.parameters(), hparams,

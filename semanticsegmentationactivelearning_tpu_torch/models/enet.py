@@ -74,6 +74,8 @@ class ENet(PackedModel):
     # the output layer that train/checkpoint.reinitialize_final_layer
     # draws anew (the -r flag)
     output_module = "Final"
+    # dropout layers: the MC-dropout measures (BALD) apply
+    uses_dropout = True
 
     def __init__(self, num_classes: int,
                  drop_rates: Sequence[float] = (0.01, 0.1, 0.1, 0.1, 0.1),

@@ -19,10 +19,13 @@
 
 Submodules carry the flax names (``Branch1_1``, ``SharedStem``,
 ``res2_1``, ``LowResTail``, ``CFF1``, ``CFF2``, ``Classifier``, ...), so
-``train/bridge.py`` maps the flax tree one to one. BN eps is 1e-3; the
-eval forward only (running statistics). Input H and W must be multiples
-of 32. The seams the kernels plug into are ``fuse_from_front``,
-``fuse_to_cff1``, ``fuse_from_stem1`` and ``head_pre_logits``;
+``train/bridge.py`` maps the flax tree one to one. BN eps is 1e-3 and
+momentum 0.9. ``forward(training=True)`` normalises with the batch's
+statistics and moves the running ones (``blocks.BatchNorm``); ICNet has
+no dropout, so a train step's generator is taken and ignored. Input H
+and W must be multiples of 32. The seams the kernels plug into are
+``fuse_from_front``, ``fuse_to_cff1``, ``fuse_from_stem1`` and
+``head_pre_logits``;
 :meth:`ICNet.fused_score` routes the acquisition score, and
 :meth:`ICNet.fused_predict` the served labels, through the front
 (+stem) and head kernels of ``ops/kernels``. Not ported: the
@@ -32,7 +35,7 @@ and ``spatial_front_score`` (ROADMAP).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,8 +58,9 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(cout)
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.bn(self.conv(x))
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
+        y = self.bn(self.conv(x), training)
         return F.relu(y) if self.relu else y
 
 
@@ -88,10 +92,12 @@ class ResBottleneck(nn.Module):
         self.proj = (ConvBN(cin, features, 1, stride=stride, relu=False)
                      if cin != features or stride != 1 else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.expand(self.conv(self.reduce(x)))
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
+        h = self.expand(self.conv(self.reduce(x, training), training),
+                        training)
         if self.proj is not None:
-            x = self.proj(x)
+            x = self.proj(x, training)
         return F.relu(h + x)
 
 
@@ -124,11 +130,12 @@ class CascadeFeatureFusion(nn.Module):
         self.low = ConvBN(low_ch, features, 3, dilation=2, relu=False)
         self.high = ConvBN(high_ch, features, 1, relu=False)
 
-    def forward(self, low: torch.Tensor, high: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, low: torch.Tensor, high: torch.Tensor,
+                training: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         low_up = xops.resize_bilinear(low, high.shape[1:3])
         aux_logits = self.aux_cls(low_up)
-        return F.relu(self.low(low_up) + self.high(high)), aux_logits
+        return (F.relu(self.low(low_up, training)
+                       + self.high(high, training)), aux_logits)
 
 
 class SharedStem(nn.Module):
@@ -146,19 +153,23 @@ class SharedStem(nn.Module):
             for i in range(3)))
         self.res3_1 = ResBottleneck(128, 256, stride=2)
 
-    def front(self, x: torch.Tensor) -> torch.Tensor:
+    def front(self, x: torch.Tensor, training: bool = False
+              ) -> torch.Tensor:
         """conv1_1..conv1_3 and the SAME 3x3/s2 max pool (the part the
         front+stem kernels compute): half-res image -> stem1."""
-        h = self.conv1_3(self.conv1_2(self.conv1_1(x)))
+        h = self.conv1_1(x, training)
+        h = self.conv1_3(self.conv1_2(h, training), training)
         return xops.max_pool_3x3_same(h)
 
-    def from_pool(self, h: torch.Tensor) -> torch.Tensor:
+    def from_pool(self, h: torch.Tensor, training: bool = False
+                  ) -> torch.Tensor:
         for name in self.res2:
-            h = getattr(self, name)(h)
-        return self.res3_1(h)
+            h = getattr(self, name)(h, training)
+        return self.res3_1(h, training)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.from_pool(self.front(x))
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
+        return self.from_pool(self.front(x, training), training)
 
 
 class LowResTail(nn.Module):
@@ -178,10 +189,11 @@ class LowResTail(nn.Module):
         self.ppm = PyramidPooling()
         self.reduce = ConvBN(1024, 256, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
         for name in self.blocks:
-            x = getattr(self, name)(x)
-        return self.reduce(self.ppm(x))
+            x = getattr(self, name)(x, training)
+        return self.reduce(self.ppm(x), training)
 
 
 class ICNet(PackedModel):
@@ -198,9 +210,12 @@ class ICNet(PackedModel):
     # draws anew (the -r flag)
     output_module = "Classifier"
 
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, drop_rates: Sequence[float] = ()):
         super().__init__()
         self.num_classes = num_classes
+        # taken as the JAX dataclass takes it (the CLIs build every model
+        # with the conf's rates); ICNet has no dropout layer to use them
+        self.drop_rates = tuple(float(r) for r in drop_rates)
         self.Branch1_1 = ConvBN(3, 32, 3, stride=2)
         self.Branch1_2 = ConvBN(32, 32, 3, stride=2)
         self.Branch1_3 = ConvBN(32, 64, 3, stride=2)
@@ -212,16 +227,22 @@ class ICNet(PackedModel):
 
     # -- forward and seams ---------------------------------------------
 
-    def branch1(self, x: torch.Tensor) -> torch.Tensor:
+    def branch1(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
         """Full-res image -> f1 ``[N, H/8, W/8, 64]``."""
-        return self.Branch1_3(self.Branch1_2(self.Branch1_1(x)))
+        x = self.Branch1_1(x, training)
+        return self.Branch1_3(self.Branch1_2(x, training), training)
 
-    def forward(self, x: torch.Tensor, multiscale: bool = False,
+    def forward(self, x: torch.Tensor, training: bool = False,
+                multiscale: bool = False,
                 return_pre_logits: bool = False,
                 return_features8: bool = False,
-                return_embedding: bool = False):
+                return_embedding: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``x`` NHWC float -> float32 logits ``[N, H, W, classes]``;
-        with ``multiscale`` also ``(cls4, aux8, aux16)``; with
+        with ``training`` batch norm on the batch's statistics, moving
+        the running ones (``generator`` is ignored: no dropout); with
+        ``multiscale`` also ``(cls4, aux8, aux16)``; with
         ``return_features8`` the CFF2 output, with ``return_pre_logits``
         the 1/4-res classifier logits, with ``return_embedding`` the CFF2
         output averaged over H and W, float32 ``[N, 128]`` (the pool
@@ -230,11 +251,11 @@ class ICNet(PackedModel):
         if h % 32 or w % 32:
             raise ValueError(
                 f"ICNet input dims must be divisible by 32, got {h}x{w}")
-        f1 = self.branch1(x)
+        f1 = self.branch1(x, training)
         x_half = xops.resize_bilinear(x, (h // 2, w // 2))
-        f2 = self.SharedStem(x_half)
-        fused16, aux16 = self._cff1(f2)
-        fused8, aux8 = self.CFF2(fused16, f1)
+        f2 = self.SharedStem(x_half, training)
+        fused16, aux16 = self._cff1(f2, training)
+        fused8, aux8 = self.CFF2(fused16, f1, training)
         if return_embedding:
             return fused8.float().mean(dim=(1, 2))
         if return_features8:
@@ -247,10 +268,11 @@ class ICNet(PackedModel):
             return logits, (cls4, aux8, aux16)
         return logits
 
-    def _cff1(self, f2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _cff1(self, f2: torch.Tensor, training: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """f2 -> 2x downsample -> LowResTail -> CFF1(f3, f2)."""
         f3 = xops.resize_bilinear(f2, (f2.shape[1] // 2, f2.shape[2] // 2))
-        return self.CFF1(self.LowResTail(f3), f2)
+        return self.CFF1(self.LowResTail(f3, training), f2, training)
 
     def fuse_from_front(self, f1: torch.Tensor, x_half: torch.Tensor
                         ) -> torch.Tensor:

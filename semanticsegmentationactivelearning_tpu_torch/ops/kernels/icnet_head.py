@@ -86,11 +86,11 @@ def _check_classes(c: int, predict: bool = False) -> None:
 def head_pre_logits(features8: torch.Tensor, wcls: torch.Tensor,
                     bcls: torch.Tensor) -> torch.Tensor:
     """1/8-res fused features -> 2x upsample -> classifier -> 1/4-res
-    logits (float32); ``ICNet.head_pre_logits`` and the plain versions
-    below."""
+    logits in the classifier's dtype (float32; float64 for a model in
+    float64); ``ICNet.head_pre_logits`` and the plain versions below."""
     _, h8, w8, _ = features8.shape
-    return (xops.resize_bilinear(features8, (2 * h8, 2 * w8)).float() @ wcls
-            + bcls)
+    up = xops.resize_bilinear(features8, (2 * h8, 2 * w8))
+    return up.to(wcls.dtype) @ wcls + bcls
 
 
 def head8_entropy_score_plain(features8: torch.Tensor, wcls: torch.Tensor,

@@ -16,8 +16,9 @@ model's loss heads, nearest-resizing labels and mask to each head
 kernels and PReLU alphas. The JAX function selects the leaves named
 ``kernel`` and ``alpha``; in the port a conv's kernel and a batch
 norm's scale are both named ``weight``, so this one selects by module
-type (the ENet blocks' ``Conv`` and ``ConvTranspose``, the multiscale
-heads among them, and ``PReLU``) and never touches a ``BatchNorm``.
+type (the blocks' ``Conv`` and ``ConvTranspose``, the multiscale heads
+among them, ICNet's 1x1 classifiers with bias, ``Conv1x1Bias``, by their
+kernels alone, and ``PReLU``) and never touches a ``BatchNorm``.
 """
 
 from __future__ import annotations
@@ -125,13 +126,15 @@ def multiscale_masked_softmax_cross_entropy(
 def _regularized(model: nn.Module) -> List[Tuple[nn.Parameter,
                                                             bool]]:
     """``(parameter, is_kernel)`` for every parameter the regulariser
-    covers: the kernels of the ENet blocks' convs and transposed convs
-    (the multiscale heads are such convs) and the PReLU alphas, in
-    module order."""
+    covers: the kernels of the blocks' convs and transposed convs (the
+    multiscale heads are such convs) and of ICNet's classifiers (not
+    their biases, as flax names only the kernel ``kernel``) and the
+    PReLU alphas, in module order."""
     from ..models.blocks import Conv, ConvTranspose, PReLU
+    from ..models.icnet import Conv1x1Bias
     out = []
     for m in model.modules():
-        if isinstance(m, (Conv, ConvTranspose)):
+        if isinstance(m, (Conv, ConvTranspose, Conv1x1Bias)):
             out.append((m.weight, True))
         elif isinstance(m, PReLU):
             out.append((m.alpha, False))

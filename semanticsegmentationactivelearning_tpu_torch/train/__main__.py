@@ -20,10 +20,12 @@ saves ``{log_dir}/model-N.ckpt``; the run ends with ``final_val``. It
 resumes from ``-c`` or from the log directory's latest checkpoint (a
 port training checkpoint whole; a JAX one's weights, step and epoch).
 
-ENet only: ICNet's train mode (ROADMAP.md Queue 1 item 2), bf16 models
-and ``--modalities`` (Queue 1 item 7) raise. ``train_group`` is read
-and ignored (grouped dispatch is not ported), and with several GPUs it
-trains on the first (multi-GPU training is Queue 1 item 9).
+It trains ENet and ICNet (ICNet's conf, ``conf/icnet_cityscapes.json``,
+takes the cascade loss over its three heads). bf16 models (ROADMAP.md
+Queue 1 item 2) and ``--modalities`` (Queue 1 item 7) raise.
+``train_group`` is read and ignored (grouped dispatch is not ported),
+and with several GPUs it trains on the first (multi-GPU training is
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 
 from ..data import loader, pipeline
 from ..data.device_prefetch import device_prefetch
-from ..models import get_model
+from ..models import conf_model_kwargs, get_model
 from ..ops import metrics as xmetrics
 from ..utils import cli, images
 from . import checkpoint as ckpt
@@ -85,9 +87,6 @@ def main(args) -> int:
     params = args.params
     hparams = params["hyperparams"]
     model_name = params["network"]["model"]
-    if model_name.lower() != "enet":
-        raise _not_ported(f"Training {model_name} (its train mode and "
-                          "cascade loss)", "2")
     if params["network"].get("dtype") in ("bfloat16", "bf16"):
         raise _not_ported("A bf16 model (network.dtype)", "2")
     device = cli.device_from_args(args.device)
@@ -126,10 +125,8 @@ def main(args) -> int:
                     "(grouped dispatch is not ported)",
                     int(params["train_group"]))
 
-    multiscale = bool(hparams["softmax"].get("multiscale", False))
     model = get_model(model_name, dataset.num_classes,
-                      drop_rates=tuple(hparams["dropout_rates"]),
-                      multiscale_heads=multiscale).to(device)
+                      **conf_model_kwargs(model_name, hparams)).to(device)
     optimizer, scheduler = optim.make_optimizer(model.parameters(), hparams,
                                                 train_batches)
     state = create_train_state(model, optimizer, scheduler, seed=args.seed)

@@ -28,11 +28,14 @@ the baseline and ``-r`` runs hold 4 records out for it.
   grown by the selection size without repeats, one ``al_confidence``
   or one ``al_coreset`` record), and the BALD measure's ``ValueError``
   on a model without active dropout (all ``dropout_rates`` 0);
+- ICNet (the AL conf with ``network.model`` ICNet and its cascade loss,
+  ``softmax.multiscale``): one entropy round and one core-set round,
+  checked as above, and BALD's ``ValueError`` (ICNet has no dropout)
+  before ``state.json`` is written;
 - the default ``--device cuda`` raises without a card, and each conf
-  and flag that is not ported raises and names its ROADMAP item (ICNet
-  with either of the two acquisition strategies too).
+  and flag that is not ported raises and names its ROADMAP item.
 
-Measured: about 19 s on one process.
+Measured: about 26 s on one process.
 """
 
 import ast
@@ -373,12 +376,51 @@ def test_bald_needs_active_dropout(records, tmp_path):
     assert not log.exists()
 
 
+ICNET = {"network__model": "ICNet",
+         "hyperparams__softmax": {"multiscale": True, "label_smoothing": 0.0,
+                                  "loginverse_scaling": 1.02}}
+
+
+def test_icnet_bald_raises_before_writing(records, tmp_path):
+    """The root CLI's ``ValueError`` (active_learning.py:341-346): ICNet
+    has no dropout layer, whatever the conf's ``dropout_rates``."""
+    log = tmp_path / "l"
+    args = al.parse_args(["cityscapes", "-d", str(records), "-l", str(log),
+                          "-p", _conf(str(tmp_path), "n",
+                                      active_learning__measure="bald",
+                                      **ICNET),
+                          "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs a model with active "
+                                         "dropout.*ICNet has none"):
+        al.main(args)
+    assert not log.exists()
+
+
+@pytest.mark.parametrize("selection", ["uncertainty", "coreset"])
+def test_icnet_round(records, tmp_path, caplog, selection):
+    """One ICNet round with the entropy measure (the pool through
+    ICNet's fused_score) or core-set selection (fused8's mean)."""
+    want = _root_cli_records()
+    text, records_ = _one_round(records, tmp_path, caplog,
+                                active_learning__selection=selection,
+                                **ICNET)
+    splits = [r["split"] for r in records_]
+    picked, other = ("al_coreset", "al_confidence")[::(
+        1 if selection == "coreset" else -1)]
+    assert splits.count(picked) == 1 and other not in splits
+    assert splits.count("al_timing") == 1
+    assert ("Core-set (k-center greedy) selection enabled" in text) \
+        == (selection == "coreset")
+    for r in records_:
+        assert set(r) == want[r["split"]], r["split"]
+    assert all(np.isfinite(r["loss"]) for r in records_
+               if r["split"] == "al_train_iter")
+    best = checkpoint.latest_checkpoint(str(tmp_path / "log" / "pretrain"))
+    assert "Classifier.weight" in torch.load(best,
+                                             weights_only=True)["model"]
+
+
 @pytest.mark.parametrize("over,extra,item", [
-    ({"network__model": "ICNet", "active_learning__measure": "bald"}, [],
-     "item 2"),
-    ({"network__model": "ICNet", "active_learning__selection": "coreset"},
-     [], "item 2"),
-    ({"network__model": "ICNet"}, [], "item 2"),
     ({"network__dtype": "bfloat16"}, [], "item 2"),
     ({}, ["-m", "rgb", "nir"], "item 7")])
 def test_not_ported_raises(records, tmp_path, over, extra, item):

@@ -220,8 +220,9 @@ def test_forward_matches_apply(setup, shape):
     ratios."""
     jm, variables, tm = setup
     x = _image(shape, 5)
-    logits, heads = jm.apply(variables, jnp.asarray(x), training=False,
-                             multiscale=True)
+    # jitted: eager flax dispatch compiles every primitive anew (~10 s)
+    logits, heads = jax.jit(lambda v, x: jm.apply(
+        v, x, training=False, multiscale=True))(variables, jnp.asarray(x))
     with torch.no_grad():
         got, got_heads = tm(torch.from_numpy(x), multiscale=True)
     assert got.shape == shape[:3] + (C,)
@@ -271,15 +272,24 @@ ROUTES = [
 ]
 
 
+@pytest.fixture(scope="module")
+def jax_entropy(setup):
+    """An image batch and the JAX reference score of every route,
+    fused_score(use_pallas=False), jitted once."""
+    jm, variables, _ = setup
+    x = _image((2, *HW, 3), 7)
+    return x, jax.jit(lambda v, x: jm.fused_score(v, x, "entropy"))(
+        variables, jnp.asarray(x))
+
+
 @pytest.mark.parametrize("route, flags, wrappers", ROUTES,
                          ids=[r[0] for r in ROUTES])
-def test_fused_score_route_matches_jax(setup, monkeypatch, route, flags,
-                                       wrappers):
+def test_fused_score_route_matches_jax(setup, jax_entropy, monkeypatch,
+                                       route, flags, wrappers):
     """Each entropy route (the wrappers' plain versions on the CPU)
     against the JAX reference score, fused_score(use_pallas=False)."""
-    jm, variables, tm = setup
-    x = _image((2, *HW, 3), 7)
-    want = jm.fused_score(variables, jnp.asarray(x), "entropy")
+    tm = setup[2]
+    x, want = jax_entropy
     calls = []
     for mod in (icnet_front, icnet_head):
         for name in wrappers:
@@ -339,10 +349,14 @@ def test_get_model_builds_icnet():
     assert 5.0e6 < n < 1.0e7, n  # as tests/test_icnet.py bounds the JAX one
 
 
+# jitted: eagerly, each of the ~350 leaves' zeros compiles on its own
+_ADAM_INIT = jax.jit(optax.adam(1e-3).init)
+
+
 def _train_state(variables):
     return jax_steps.TrainState(
         params=variables["params"], batch_stats=variables["batch_stats"],
-        opt_state=optax.adam(1e-3).init(variables["params"]),
+        opt_state=_ADAM_INIT(variables["params"]),
         step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
 
 
@@ -355,10 +369,9 @@ def jax_labels(setup):
     argmax)."""
     jm, variables, _ = setup
     x = _image((2, *HW, 3), 10)
-    labels = jax.jit(lambda v, x: jm.fused_predict(v, x))(variables,
-                                                          jnp.asarray(x))
-    logits = jax.jit(lambda v, x: jm.apply(v, x, training=False))(
-        variables, jnp.asarray(x))
+    labels, logits = jax.jit(lambda v, x: (
+        jm.fused_predict(v, x), jm.apply(v, x, training=False)))(
+            variables, jnp.asarray(x))
     return x, np.asarray(logits), np.asarray(labels)
 
 

@@ -24,8 +24,8 @@ from semanticsegmentationactivelearning_tpu import datasets
 from semanticsegmentationactivelearning_tpu.models import ENet as JaxENet
 from semanticsegmentationactivelearning_tpu.train import (
     checkpoint as jax_checkpoint)
-from semanticsegmentationactivelearning_tpu.train import (create_train_state,
-                                                          optim)
+from semanticsegmentationactivelearning_tpu.train import optim
+from semanticsegmentationactivelearning_tpu.train.steps import TrainState
 from semanticsegmentationactivelearning_tpu_torch import inference
 from semanticsegmentationactivelearning_tpu_torch.data.device_prefetch \
     import device_prefetch
@@ -33,7 +33,8 @@ from semanticsegmentationactivelearning_tpu_torch.models import get_model
 from semanticsegmentationactivelearning_tpu_torch.train import (bridge,
                                                                 checkpoint)
 
-from _torch_parity import decided, noised_stats, port_model, to_numpy_tree
+from _torch_parity import (decided, fast_jit, noised_stats, port_model,
+                           to_numpy_tree)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, C = 32, 64, 19
@@ -52,12 +53,31 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def jax_state():
-    """A JAX TrainState for ENet-19 with noised BatchNorm statistics."""
+    """A JAX TrainState for ENet-19 with noised BatchNorm statistics:
+    ``train.create_train_state``'s init compiled with ``FAST_COMPILE``
+    (the same weights bit for bit, in about 10 s of its 17)."""
     model = JaxENet(num_classes=C)
-    state = create_train_state(model, optim.make_optimizer({}),
-                               jax.random.PRNGKey(0), (H, W))
+    key = jax.random.PRNGKey(0)
+    v = fast_jit(lambda k: model.init(
+        {"params": k, "dropout": jax.random.PRNGKey(0)},
+        jnp.zeros((1, H, W, 3), jnp.float32), training=True,
+        multiscale=False), key)(key)
+    state = TrainState(params=v["params"], batch_stats=v["batch_stats"],
+                       opt_state=optim.make_optimizer({}).init(v["params"]),
+                       step=jnp.zeros((), jnp.int32),
+                       epoch=jnp.zeros((), jnp.int32))
     return model, state.replace(batch_stats=noised_stats(state.batch_stats,
                                                          0))
+
+
+@pytest.fixture(scope="module")
+def jax_logits(jax_state):
+    """``images -> the JAX model's logits``, eval mode, jitted (eager
+    flax dispatch compiles every primitive of ENet anew)."""
+    model, state = jax_state
+    apply = jax.jit(lambda v, x: model.apply(v, x))
+    return lambda images: np.asarray(apply(
+        _variables(state), jnp.asarray(images, jnp.float32) / 255.0))
 
 
 def _variables(state):
@@ -71,7 +91,7 @@ def jax_ckpt(jax_state, tmp_path_factory):
     return path
 
 
-def test_make_predict_fn_matches_jax(jax_state, monkeypatch):
+def test_make_predict_fn_matches_jax(jax_state, jax_logits, monkeypatch):
     monkeypatch.delenv("SSAL_FUSED_PREDICT", raising=False)
     import inference as jax_inference
     model, state = jax_state
@@ -89,9 +109,7 @@ def test_make_predict_fn_matches_jax(jax_state, monkeypatch):
         "cpu")
     got = port(torch.from_numpy(stack))
     assert got.dtype == torch.uint8 and got.shape == (2, h, w)
-    logits = model.apply(_variables(state),
-                         jnp.asarray(stack, jnp.float32) / 255.0)
-    mask = decided(np.asarray(logits)[:, :h, :w])
+    mask = decided(jax_logits(stack)[:, :h, :w])
     assert mask.mean() > 0.99
     np.testing.assert_array_equal(got.numpy()[mask], want[mask])
 
@@ -176,7 +194,7 @@ def records(tmp_path_factory):
     return out, np.stack(images)
 
 
-def test_cli_on_a_jax_checkpoint(jax_state, jax_ckpt, records, tmp_path):
+def test_cli_on_a_jax_checkpoint(jax_logits, jax_ckpt, records, tmp_path):
     """The port's CLI serves a JAX-written checkpoint; its PNGs hold the
     JAX model's reverse-embedded labels on decided pixels."""
     rec_dir, images = records
@@ -192,9 +210,7 @@ def test_cli_on_a_jax_checkpoint(jax_state, jax_ckpt, records, tmp_path):
     pngs = sorted(out.glob("*.png"))
     assert [p.name for p in pngs] == [f"sample{i:02d}.png"
                                       for i in range(3)]
-    model, state = jax_state
-    logits = np.asarray(model.apply(
-        _variables(state), jnp.asarray(images, jnp.float32) / 255.0))
+    logits = jax_logits(images)
     lut = np.asarray(datasets.Cityscapes().embedding_reversed)
     want = lut[np.argmax(logits, axis=-1)]
     mask = decided(logits)
