@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's ENet and ICNet serving and
-pool-scoring paths, of ENet's training, active-learning loop (BALD and
-core-set acquisition too) and of
-its measurement rigs on one NVIDIA GPU.
+pool-scoring paths, of ENet's and ICNet's training and active-learning
+loop (BALD and core-set acquisition too), of multi-modal input and the
+migration entries, and of its measurement rigs on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -158,7 +158,8 @@ Phases (any failure raises, so the exit code is not 0):
         counted); then one pseudo step (SGD, dropout 0, TF32 off, phase
         10a's weights) on the card against the CPU's in fp32 and
         float64 on the targets the card's step used, under the AL
-        conf's fp32 TRAIN_BOUNDS;
+        conf's fp32 TRAIN_BOUNDS (the loss gated against the fp32 step,
+        AL_LOSS_REF);
      b. the CLI's pool pass (active_learning.score_pool and
         select_lowest) over 32 records in this process, with the kernel
         and the plain score step: the scores within 1e-4 an image, the
@@ -215,6 +216,41 @@ Phases (any failure raises, so the exit code is not 0):
         front + stem's three kernels and CFF2 + head score (#11) once a
         batch, a core-set round and BALD side by side, BALD to exit with
         the JAX CLI's ValueError before state.json exists.
+  14. Freiburg multi-modal and the migration entries, ENet on
+     conf/freiburg_forest.json's shape (batch 8, 432x648, Freiburg's 6
+     classes, RGB and the NIR plane: 4 input planes):
+     a. a synthetic Freiburg tree (train/ and test/, each with rgb/,
+        nir_gray/ and GT_color/ PNGs of seeded colour blocks in the
+        dataset's colours), then the port's generate_dataset in a child
+        process with --modalities rgb nir_gray: the records' splits,
+        image size, 4 stacked planes and NIR plane;
+     b. #7 (the decoder score route, tail5_kernel on its score route)
+        at this shape (eighth grid 54x81: partial edge tiles), where the
+        4-plane ENet's fused_score takes it: against its plain version
+        on the same stage-4 features and the route against the plain
+        chain, within SCORE_TOL an image at each Final scale of
+        SCORE_SCALES, bit-equal run to run, its tile sums over their
+        pixels under PRECISION_GATE at the first (the edge tiles are
+        partial); its time, plain time and bound;
+        the eval forward against the CPU's (phase 3's 1e-3 gate); the
+        4-plane train step's ms/step at batch 8 (TF32 convs, median of
+        10 after 3) and FB_LEARN_STEPS steps on one batch halving the
+        loss;
+     c. the CLIs with freiburg -m rgb nir_gray in child processes: an
+        AL round (the AL conf at 432x648, cut as 11c) beside the train
+        CLI (2 epochs of conf/freiburg_forest.json) and then the
+        inference CLI on its checkpoint, which serves through the plain
+        route (no kernel launched) the maps of this process's plain
+        forward on decided pixels; the AL round's pool pass must launch
+        #7 once a batch and no other kernel;
+     d. the reference-checkpoint importer without TensorFlow: a seeded
+        ENet-19 with the multiscale heads as the reference's variables
+        (reference_variables, the inverse of train/tf_import's mapping)
+        through convert_reference_variables, every tensor back
+        bit-equal; the imported model serves batch 2 at 1024x2048
+        through #1, #3 and #5 with the original's labels; then a 4-plane
+        one, which a 3-plane model refuses and which scores a batch
+        through #7 as the original does.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}. Neither this process nor its child
 processes (the record writer and the CLI) import JAX or the JAX package;
@@ -355,6 +391,15 @@ TRAIN_BOUNDS = {
 # 1.506e-5 against the fp32 step, 9.7e-7 against float64). The loss and
 # the gradients are gated against both.
 STATS_REF = "fp64"
+# 11a gates the pseudo step's loss against the CPU's fp32 step alone and
+# prints it against its float64 step: at seeds 0-4 the card's fp32 loss
+# sat within 5.3e-7 of the CPU's fp32 loss, and the CPU's own fp32 loss
+# sat 1.051e-6 and 1.045e-6 from its float64 loss at seeds 2 and 3 (the
+# float32 sum of the CE over the batch's 1M pixels), so a float64 gate
+# at 1e-6 passed or failed the card by the rounding of the CPU's fp32
+# step (the per-seed figures: PERF.md §6). The gradients and the
+# statistics are gated against both.
+AL_LOSS_REF = "fp32"
 # the keys of each metrics.jsonl record of the train CLI (the JAX CLI's)
 TRAIN_RECORD_KEYS = {
     "train_iter": {"split", "step", "epoch", "loss", "cost",
@@ -735,6 +780,17 @@ def centred_max(d: torch.Tensor) -> float:
     adds to every tile alike, which one rounding can cancel by chance
     and another not (tests/test_torch_{deconv,tail}_pack.py)."""
     return (d - d.mean(dim=1, keepdim=True)).abs().max().item()
+
+
+def tile_pixels(hq: int, wq: int, device) -> torch.Tensor:
+    """The pixels of each 32x32-pixel tile of ``tail5_kernel`` (its
+    partial sums' order, row-major) on an image of 4hq x 4wq: fewer at
+    the bottom and right edges where 32 does not divide the image."""
+    rows = (4 * hq - 32 * torch.arange(-(-hq // 8), device=device)).clamp(
+        max=32)
+    cols = (4 * wq - 32 * torch.arange(-(-wq // 8), device=device)).clamp(
+        max=32)
+    return (rows[:, None] * cols[None, :]).reshape(-1).double()
 
 
 def precision_gate(what: str, precision: str, err: float, model, fn,
@@ -1962,13 +2018,15 @@ def set_precision(precision: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def train_setup(conf: str, device, check: bool, seed: int):
+def train_setup(conf: str, device, check: bool, seed: int,
+                classes: int = CLASSES, in_channels: int = 3):
     """(state, train_step, hyperparams) for the conf's model on
     ``device``, built as the train CLI builds it, with the seeded weights
-    (ENet-19: glorot from the seed's generator; ICNet-19:
-    seeded_state_dict's, BN means N(0, 0.1), the classifier x1);
-    ``check``: SGD and dropout rates 0 (phases 10a, 11a, 13a), else the
-    conf's optimizer and rates."""
+    (ENet: glorot from the seed's generator; ICNet: seeded_state_dict's,
+    BN means N(0, 0.1), the classifier x1); ``check``: SGD and dropout
+    rates 0 (phases 10a, 11a, 13a), else the conf's optimizer and rates.
+    ``classes`` and ``in_channels``: the model's (ENet-19 of RGB unless
+    given)."""
     from semanticsegmentationactivelearning_tpu_torch.models import (
         conf_model_kwargs, get_model)
     from semanticsegmentationactivelearning_tpu_torch.train import (
@@ -1979,14 +2037,15 @@ def train_setup(conf: str, device, check: bool, seed: int):
     if check:
         hp["optimizer"] = {"type": "SGD"}
         hp["dropout_rates"] = [0.0] * 5
-    model = get_model(name, CLASSES, **conf_model_kwargs(name, hp))
+    model = get_model(name, classes, in_channels=in_channels,
+                      **conf_model_kwargs(name, hp))
     if name == "ICNet":
         model.load_state_dict(seeded_state_dict(model, seed, 1.0, name))
     model = model.to(device)
     opt, sched = optim.make_optimizer(model.parameters(), hp)
     state = steps.create_train_state(model, opt, sched,
                                      seed=None if name == "ICNet" else seed)
-    return state, steps.make_train_step(model, CLASSES, hp), hp
+    return state, steps.make_train_step(model, classes, hp), hp
 
 
 def fixed_batch(stack: np.ndarray, device, dtype=torch.float32) -> dict:
@@ -2455,6 +2514,7 @@ def check_pseudo_step(seed: int) -> dict:
     errors, failed = {}, []
     for ref_name, dtype in (("fp32", torch.float32),
                             ("fp64", torch.float64)):
+        gated = [k for k in bounds if k != "loss" or ref_name == AL_LOSS_REF]
         ref_state, _, _ = train_setup(AL_CONF, "cpu", True, seed)
         ref_state.model.to(dtype)
         steps.pseudo_targets = lambda *a: (targets[0].cpu(),  # noqa: E731
@@ -2471,12 +2531,13 @@ def check_pseudo_step(seed: int) -> dict:
         print(f"al 11a: pseudo step (threshold {median:.6g}, "
               f"{int(targets[1][1].sum())} pseudo pixels) on the card "
               f"against the CPU {ref_name}: loss {ref['loss']:.6f} rel err "
-              f"{err['loss']:.3e} (bound {bounds['loss']:.1e}); gradients: "
+              f"{err['loss']:.3e} (bound {bounds['loss']:.1e}"
+              f"{'' if 'loss' in gated else ', not gated'}); gradients: "
               f"largest rel L2 {err['grad']:.3e} ({err['grad_tensor']}), "
               f"median {err['grad_median']:.3e} (bound "
               f"{bounds['grad']:.1e}); BN statistics {err['stats']:.3e} "
               f"(bound {bounds['stats']:.1e})")
-        if any(err[k] > bounds[k] for k in bounds):
+        if any(err[k] > bounds[k] for k in gated):
             failed.append(ref_name)
     cpu = [errors[k]["ref_loss"] for k in ("fp32", "fp64")]
     print(f"al 11a: the CPU's fp32 loss against its float64 loss: rel err "
@@ -3109,6 +3170,537 @@ def run_icnet_al_cli(seed: int, rec: str, smi_name: str, during=None):
     return launches, timings, during_out
 
 
+# phase 14: Freiburg multi-modal (conf/freiburg_forest.json: ENet, batch
+# 8, 432x648, Freiburg's 6 classes; RGB and the NIR plane) and the
+# migration entries (generate_dataset, the reference-checkpoint importer)
+FB_CONF = "conf/freiburg_forest.json"
+FB_CLASSES, FB_PLANES = 6, 4
+FN, FH, FW = 8, 432, 648
+FB_TRAIN, FB_TEST = 24, 4   # 14a's examples a split
+# 14b's learning check: the conf's Adam at 5e-4 with label smoothing 0.05
+# and dropout over 6 classes took the loss on one batch to 0.774 of its
+# first in 20 steps on the card and to 0.547 in 60 on the CPU (216x328),
+# falling steadily; 100 steps halve it
+FB_LEARN_STEPS = 100
+# GT_color colours of five Freiburg classes (datasets/freiburg.py: Road,
+# Grass, Vegetation, Sky, Obstacle)
+FB_COLORS = ((170, 170, 170), (0, 255, 0), (102, 102, 51), (0, 120, 255),
+             (0, 0, 0))
+# appended to a phase-14 child: every score and predict wrapper's launches
+# in FB_COUNTED's order
+FB_COUNTED = ("front", "mid", "tail", "tail_score", "decoder_score",
+              "deconv_score", "icnet_front_stem", "icnet_cff2_head_score",
+              "icnet_front", "icnet_head8_score")
+FB_COUNTS = (
+    "from semanticsegmentationactivelearning_tpu_torch.ops.kernels import "
+    "front, mid, tail, decoder, deconv_score, icnet_front, icnet_head\n"
+    "print('fb-kernel-launches:', front.fused_front_stage1.launches, "
+    "mid.fused_mid_stage23.launches, tail.fused_tail_predict.launches, "
+    "tail.fused_tail_entropy_score.launches, "
+    "decoder.fused_decoder_entropy_score.launches, "
+    "deconv_score.fused_deconv_entropy_score.launches, "
+    "icnet_front.fused_icnet_front_stem.launches, "
+    "icnet_head.fused_cff2_head8_entropy_score.launches, "
+    "icnet_front.fused_icnet_front.launches, "
+    "icnet_head.fused_head8_entropy_score.launches)\n")
+PORT = "semanticsegmentationactivelearning_tpu_torch"
+
+
+def fb_launches(res) -> dict:
+    """The FB_COUNTS line of a child's output, by kernel."""
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("fb-kernel-launches:")][-1]
+    return dict(zip(FB_COUNTED, map(int, line.split()[1:])))
+
+
+def write_freiburg_tree(root: str, seed: int) -> None:
+    """Phase 14a's dataset tree, the Freiburg layout: ``train/`` and
+    ``test/``, each with ``rgb/``, ``nir_gray/`` (one plane) and
+    ``GT_color/`` PNGs of FH x FW, a 6x8 grid of blocks an example whose
+    class sets the label's colour (FB_COLORS), the image's (a colour a
+    class, with noise) and the NIR plane's (50 a class, with noise)."""
+    rng = np.random.default_rng(seed)
+    tint = rng.integers(0, 256, (len(FB_COLORS), 3))
+    colors = np.array(FB_COLORS, np.uint8)
+    for split, n in (("train", FB_TRAIN), ("test", FB_TEST)):
+        for sub in ("rgb", "nir_gray", "GT_color"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i in range(n):
+            idx = rng.integers(0, len(FB_COLORS), (6, 8))
+            lbl = np.kron(idx, np.ones((FH // 6, FW // 8), np.int64))
+            img = np.clip(tint[lbl] + rng.integers(-20, 20, (FH, FW, 3)),
+                          0, 255).astype(np.uint8)
+            nir = np.clip(lbl * 50 + 10 + rng.integers(-5, 5, (FH, FW)),
+                          0, 255).astype(np.uint8)
+            name = f"{split[0]}{i:03d}"
+            for sub, a in (("GT_color", colors[lbl]), ("rgb", img),
+                           ("nir_gray", nir)):
+                PIL.Image.fromarray(a).save(os.path.join(
+                    root, split, sub,
+                    f"{name}_mask.png" if sub == "GT_color"
+                    else f"{name}.png"))
+
+
+def freiburg_etl(seed: int, tmp: str) -> str:
+    """Phase 14a: the Freiburg tree (write_freiburg_tree), then the port's
+    generate_dataset in a child process with ``--modalities rgb
+    nir_gray``; the records' splits, planes and NIR plane checked.
+    Returns the records' directory."""
+    from semanticsegmentationactivelearning_tpu_torch.data import (example,
+                                                                   loader)
+    tree, rec = os.path.join(tmp, "freiburg"), os.path.join(tmp, "fb_rec")
+    t0 = time.perf_counter()
+    write_freiburg_tree(tree, seed + 70)
+    os.makedirs(rec)
+    _, secs = run_child(f"{PORT}.generate_dataset", "-d", tree, "-t",
+                        "freiburg", "-o", rec, "--modalities", "rgb",
+                        "nir_gray")
+    counts = {s: len(os.listdir(os.path.join(rec, s)))
+              for s in sorted(os.listdir(rec))}
+    test = sorted(os.path.join(rec, "test", f)
+                  for f in os.listdir(os.path.join(rec, "test")))
+    dims = example.peek_dims(test[0])
+    ld = loader.RecordLoader(test, FB_TEST, modalities=("nir_gray",))
+    stack = next(iter(ld.batches()))["stack"]
+    nir = np.stack([np.asarray(PIL.Image.open(os.path.join(
+        tree, "test", "nir_gray", f"t{i:03d}.png"))) for i in range(FB_TEST)])
+    labels = set(np.unique(stack[..., FB_PLANES]).tolist())
+    print(f"fb 14a: the tree and generate_dataset in "
+          f"{time.perf_counter() - t0:.1f} s (the child {secs:.1f} s); "
+          f"records {counts}; image {dims}; loader channels {ld.channels}, "
+          f"stack {stack.shape}; NIR planes equal {np.array_equal(stack[..., 3], nir)}; "
+          f"label values {sorted(labels)}")
+    if sum(counts.values()) != FB_TRAIN + FB_TEST or set(counts) != {
+            "train", "val", "test"} or dims != (FH, FW, 3) \
+            or ld.channels != FB_PLANES \
+            or stack.shape != (FB_TEST, FH, FW, FB_PLANES + 1) \
+            or not np.array_equal(stack[..., 3], nir) \
+            or not labels <= set(range(len(FB_COLORS))):
+        raise AssertionError("the Freiburg records are not as expected")
+    return rec
+
+
+def fb_model(seed: int, final_scale: float, device=DEV):
+    """Phase 14b's ENet-6 of FB_PLANES input planes, seeded_state_dict's
+    weights with the Final kernel x ``final_scale``."""
+    from semanticsegmentationactivelearning_tpu_torch.models import (
+        get_model)
+    model = get_model("ENet", FB_CLASSES, in_channels=FB_PLANES)
+    model.load_state_dict(seeded_state_dict(model, seed, final_scale))
+    return model.to(device).eval()
+
+
+def fb_stack(seed: int) -> np.ndarray:
+    """block_stack's FN x FH x FW batch with a NIR plane (50 a class)
+    before the label plane: uint8 ``[FN, FH, FW, FB_PLANES + 1]``."""
+    stack = block_stack(FN, FH, FW, seed)
+    label = stack[..., 3:].astype(np.int64)
+    nir = np.where(label == 255, 0, label * 50 + 10).astype(np.uint8)
+    return np.concatenate([stack[..., :3], nir, stack[..., 3:]], -1)
+
+
+def check_freiburg(seed: int) -> dict:
+    """Phase 14b: #7 (the decoder score route, ``tail5_kernel`` on its
+    score route) at the Freiburg shape, where ENet's ``fused_score``
+    takes it for FB_PLANES input planes: the kernel against its plain
+    version on the same stage-4 features, and the route against the
+    plain chain, at each Final scale of SCORE_SCALES, within SCORE_TOL
+    an image; its per-tile means (tile sums over their pixels: the edge
+    tiles are partial) under PRECISION_GATE at the first scale (as phase
+    5a); its time beside its plain version's and its bound. Then the eval forward against the
+    CPU's (phase 3's feature gate), the train step's ms/step at batch FN
+    (TF32 convs) and the learning check on one batch. Returns #7's
+    results and the train step's."""
+    from semanticsegmentationactivelearning_tpu_torch.data import pipeline
+    from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        decoder, front, tail)
+    set_precision("fp32")
+    rng = np.random.default_rng(seed + 50)
+    image = torch.from_numpy(rng.integers(
+        0, 256, (FN, FH, FW, FB_PLANES), dtype=np.uint8)).to(DEV)
+    image = image.float() / 255.0
+    r = dict(max_abs_err=0.0)
+    for scale in SCORE_SCALES:
+        model = fb_model(seed, scale)
+        with torch.no_grad():
+            f4, sw1 = model(image, return_stage4=True)
+            m1 = front.switches_to_mask(sw1)
+            args = (f4, m1, model)
+
+            def fused(f, m, mdl):
+                return decoder.fused_decoder_entropy_score(f, None, mdl,
+                                                           mask=m)
+
+            got, again = fused(*args), fused(*args)
+            want = decoder.decoder_score_plain(*args)
+            route = model.fused_score(image, "entropy")
+            chain = acquisition.mean_confidence(model(image), "entropy",
+                                                FB_CLASSES)
+        err = (got - want).abs().max().item()
+        route_err = (route - chain).abs().max().item()
+        print(f"fb 14b decoder_score (ENet-{FB_CLASSES}, {FB_PLANES} "
+              f"planes, Final x{scale:g}, batch {FN}, {FH}x{FW}, eighth "
+              f"grid {FH // 8}x{FW // 8}): scores "
+              f"{[round(v, 6) for v in got.tolist()]}, max |k-p| "
+              f"{err:.3e}; fused_score against the plain chain "
+              f"{route_err:.3e}; repeat identical {torch.equal(got, again)}")
+        if not (err <= SCORE_TOL and route_err <= SCORE_TOL
+                and torch.isfinite(got).all()):
+            raise AssertionError(f"decoder_score at {FH}x{FW}: scores "
+                                 f"differ by {err} (route {route_err})")
+        if not torch.equal(got, again):
+            raise AssertionError("decoder_score: not bit-repeatable")
+        r["max_abs_err"] = max(r["max_abs_err"], err, route_err)
+        if "ms" not in r:  # at the first scale, as phase 5a
+            # per pixel: the edge tiles hold fewer pixels here, so a
+            # rounding's shift of every pixel's confidence moves their
+            # sums less than the others' (5a's tiles are all full)
+            pix = tile_pixels(f4.shape[1], f4.shape[2], DEV)
+
+            def measure(d):
+                return centred_max(d / pix)
+
+            parts = tail.launch_decode(f4, m1, model, True)
+            want_t = tail.decode_partials_plain(f4, m1, model)
+            precision_gate(
+                f"fb 14b decoder tile means (Final x{scale:g})",
+                tail.PRECISION["score"], measure(parts - want_t), model,
+                lambda m: tail.decode_partials_plain(f4, m1, m), want_t,
+                ("Bottleneck5_0", "Bottleneck5_1", "Final"), measure)
+            del parts, want_t
+            r["ms"] = cuda_ms(lambda: fused(*args))
+            r["plain_ms"] = cuda_ms(lambda: decoder.decoder_score_plain(
+                *args))
+            first = tail.tail_layout(FB_CLASSES)[tail.T5_FIRST][0]
+            r.update(roofline(
+                (f4, m1, model.packed("tail", f4.device,
+                                      tail.pack_tail)[first:]), (got,),
+                count_flops(decoder.decoder_score_plain, args)
+                + softmax_flops(FN, FH, FW, FB_CLASSES),
+                TC_PEAK[tail.PRECISION["score"]]))
+        del f4, m1
+    print(f"fb 14b decoder_score: kernel {r['ms']:.3f} ms "
+          f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s of least work), plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']}) (batch {FN}, {FH}x{FW})")
+
+    model = fb_model(seed, FINAL_SCALE)
+    cpu = fb_model(seed, FINAL_SCALE, "cpu")
+    with torch.no_grad():
+        got = model(image[:TN]).cpu()
+        want = cpu(image[:TN].cpu())
+    feat = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"fb 14b: the eval forward (batch {TN}) against the CPU's: max "
+          f"|error| {feat:.3e} of the CPU's maximum (gate 1e-3)")
+    if not feat <= 1e-3:
+        raise AssertionError("the 4-plane eval forward disagrees with the "
+                             "CPU's")
+    del model, cpu, image
+
+    set_precision("default")
+    stack = torch.from_numpy(fb_stack(seed + 51)).to(DEV)
+    heights = torch.full((FN,), FH, device=DEV)
+    widths = torch.full((FN,), FW, device=DEV)
+    state, step, hp = train_setup(FB_CONF, DEV, False, seed, FB_CLASSES,
+                                  FB_PLANES)
+    times = []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        gen = torch.Generator(DEV).manual_seed(seed + i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, img, label, mask = pipeline.augment_batch(
+            stack, heights, widths, gen, (FH, FW), channels=FB_PLANES)
+        step(state, {"image": img, "label": label, "mask": mask,
+                     "valid": torch.ones(FN, device=DEV)}, gen)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = float(np.median([s.elapsed_time(e)
+                          for s, e in times[TRAIN_WARMUP:]]))
+    state, step, hp = train_setup(FB_CONF, DEV, False, seed, FB_CLASSES,
+                                  FB_PLANES)
+    batch = {"image": img, "label": label, "mask": mask,
+             "valid": torch.ones(FN, device=DEV)}
+    losses = [step(state, batch,
+                   torch.Generator(DEV).manual_seed(100 + i))["loss"]
+              for i in range(FB_LEARN_STEPS)]
+    losses = [v.item() for v in losses]
+    set_precision("fp32")
+    print(f"fb 14b train ({FB_CONF}: {hp['optimizer']['type']}, "
+          f"{FB_PLANES} planes): {ms:.3f} ms/step, {1000.0 * FN / ms:.1f} "
+          f"images/s (batch {FN}, {FH}x{FW}, median of {TRAIN_TIMED} after "
+          f"{TRAIN_WARMUP}); loss on one batch over {FB_LEARN_STEPS} steps "
+          f"{losses[0]:.4f} -> {losses[19]:.4f} (20) -> {losses[-1]:.4f} "
+          f"({losses[-1] / losses[0]:.3f} of the first)")
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"the 4-plane step does not learn one batch in "
+                             f"{FB_LEARN_STEPS} steps")
+    return {"decoder_score": r, "train_ms": ms}
+
+
+def run_freiburg_clis(seed: int, rec: str, tmp: str) -> tuple:
+    """Phase 14c: the CLIs with ``freiburg -m rgb nir_gray`` on 14a's
+    records, each in a child process that prints every score and predict
+    kernel's launches. The AL child (one entropy round of the AL conf
+    made Freiburg's: input FH x FW, cut as 11c) runs beside the train
+    child (2 epochs of FB_CONF) and then the inference child, which
+    serves the trained checkpoint through the plain route with no kernel
+    launched; its maps must equal this process's plain forward on the
+    decided pixels. The AL round's pool pass must launch #7 once a batch
+    and no other kernel. Returns (#7's launches there, the round's
+    al_timing)."""
+    from semanticsegmentationactivelearning_tpu_torch import datasets
+    from semanticsegmentationactivelearning_tpu_torch.data import loader
+    from semanticsegmentationactivelearning_tpu_torch.models import (
+        get_model)
+    from semanticsegmentationactivelearning_tpu_torch.train import (
+        checkpoint)
+    mods = ("-m", "rgb", "nir_gray")
+    with open(AL_CONF) as fp:
+        conf = json.load(fp)
+    conf["network"]["input"] = {"height": FH, "width": FW}
+    conf["epochs"] = 1
+    conf["hyperparams"]["learning_rate"] = 1e-7
+    conf["active_learning"].update({
+        "iterations": 1, "epochs/warm_up": 0, "num_validation": 4,
+        "num_initially_labelled": 8, "selection_size": 8})
+    al_conf, al_log = os.path.join(tmp, "fb_al.json"), \
+        os.path.join(tmp, "fb_al")
+    with open(al_conf, "w") as fp:
+        json.dump(conf, fp)
+    al = start_child(f"{PORT}.active_learning", "freiburg", "-d", rec, "-l",
+                     al_log, "-p", al_conf, "--seed", str(seed), *mods,
+                     after=FB_COUNTS)
+    try:
+        with open(FB_CONF) as fp:
+            conf = json.load(fp)
+        conf["epochs"] = 2
+        train_conf, log = os.path.join(tmp, "fb_train.json"), \
+            os.path.join(tmp, "fb_log")
+        with open(train_conf, "w") as fp:
+            json.dump(conf, fp)
+        res, secs = run_child(f"{PORT}.train", "freiburg", "-d", rec, "-l",
+                              log, "-p", train_conf, "--seed", str(seed),
+                              *mods)
+        with open(os.path.join(log, "metrics.jsonl")) as fp:
+            records = [json.loads(line) for line in fp]
+        losses = [r["loss"] for r in records if r["split"] == "train"]
+        state = checkpoint.restore_checkpoint(log)
+        planes = checkpoint.input_planes(state)
+        print(f"fb 14c train cli (2 epochs, {FB_PLANES} planes): {secs:.1f} "
+              f"s; records {[r['split'] for r in records]}; train loss by "
+              f"epoch {losses}; the checkpoint's input planes {planes}")
+        if planes != FB_PLANES or len(losses) != 2 \
+                or "Stacking modalities ['nir_gray'] -> 4 input channels" \
+                not in res.stdout + res.stderr:
+            raise AssertionError("the 4-plane train CLI is not as expected")
+
+        out = os.path.join(tmp, "fb_out")
+        test_dir = os.path.join(rec, "test")
+        res, secs = run_child(f"{PORT}.inference", "-c", log, "-d", test_dir,
+                              "-o", out, "-t", "freiburg", "--modalities",
+                              "nir_gray", "-b", "2", after=FB_COUNTS)
+        served = fb_launches(res)
+        files = sorted(os.path.join(test_dir, f)
+                       for f in os.listdir(test_dir))
+        model = get_model("ENet", FB_CLASSES, in_channels=FB_PLANES)
+        checkpoint.restore_checkpoint(log, model)
+        model = model.to(DEV).eval()
+        set_precision("default")  # the CLI's precision
+        ld = loader.RecordLoader(files, len(files), modalities=("nir_gray",),
+                                 with_label=False)
+        with torch.no_grad():
+            logits = model(torch.from_numpy(next(iter(ld.batches()))[
+                "stack"]).to(DEV).float() / 255.0)
+        set_precision("fp32")
+        want, decided = decided_labels(logits, AL_DECIDED)
+        cmap = torch.from_numpy(datasets.Freiburg().colormap).to(DEV)
+        differ = 0
+        for i, f in enumerate(files):
+            png = os.path.join(out, os.path.basename(f).replace(
+                ".tfrecord", ".png"))
+            got = torch.from_numpy(np.array(PIL.Image.open(png))).to(DEV)
+            differ += int(((got != cmap[want[i]]).any(-1) & decided[i])
+                          .sum())
+        share = decided.float().mean().item()
+        print(f"fb 14c inference cli ({FB_PLANES} planes): {len(files)} "
+              f"maps in {secs:.1f} s; launches {served}; {differ} decided "
+              f"pixels differ from this process's plain forward "
+              f"({share:.5f} of pixels decided at margin {AL_DECIDED:g})")
+        if any(served.values()) or differ > AL_FLIPS * int(decided.sum()) \
+                or share < 0.9 or "through the plain forward" \
+                not in res.stderr:
+            raise AssertionError("the inference CLI did not serve the 4-plane "
+                                 "checkpoint through the plain route")
+
+        res, secs = wait_child(al)
+    finally:
+        if al[1].poll() is None:
+            al[1].kill()
+            al[1].wait()
+    counts = fb_launches(res)
+    with open(os.path.join(al_log, "state.json")) as fp:
+        state = json.load(fp)
+    with open(os.path.join(al_log, "metrics.jsonl")) as fp:
+        records = [json.loads(line) for line in fp]
+    timing = [r for r in records if r["split"] == "al_timing"]
+    pool = len(state["dataset"]["train"]["filenames"])
+    want = dict.fromkeys(FB_COUNTED, 0)
+    want["decoder_score"] = -(-pool // SN)
+    print(f"fb 14c al cli (entropy, {FB_PLANES} planes, {FH}x{FW}): "
+          f"{secs:.1f} s; iteration {state['iteration']}, "
+          f"{len(state['dataset']['train']['labelled'])} labelled of "
+          f"{pool}; launches {counts} (expected {want}); al_timing "
+          + ", ".join(f"{k} {timing[0][k]}" for k in (
+              "train_s", "restore_s", "test_s", "score_select_s",
+              "round_s")))
+    if counts != want or state["iteration"] != 1 or len(timing) != 1 \
+            or [r["split"] for r in records].count("al_confidence") != 1:
+        raise AssertionError("the 4-plane AL round did not rank its pool "
+                             "through #7 alone")
+    return counts["decoder_score"], timing
+
+
+_REF_BN = {"weight": "gamma", "bias": "beta", "running_mean": "mean",
+           "running_var": "variance"}
+_REF_SUFFIX = "/.ATTRIBUTES/VARIABLE_VALUE"
+
+
+def reference_variables(state: dict) -> dict:
+    """A port ENet's ``state_dict`` as the reference's TF checkpoint
+    names and lays it out (``tf.train.load_checkpoint``'s key -> array):
+    the inverse of ``train/tf_import``'s mapping, kept out of the package.
+    Conv kernels HWIO, transposed-conv kernels ``[H, W, out, in]`` (both
+    are the port's weight permuted (2, 3, 1, 0)), the asymmetric pair as
+    ``conv_kernel/0|1``, BN as gamma/beta/mean/variance and the
+    multiscale heads as ``loss_scale_weights/i``."""
+    out = {}
+    for key, value in state.items():
+        a = value.detach().cpu().numpy()
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        *mods, leaf = key.split(".")
+        block, sub = mods[0], mods[-1]
+        if block.startswith("MultiscaleHead_"):
+            path = f"loss_scale_weights/{block.rsplit('_', 1)[1]}"
+        elif block in ("Initial", "Final"):
+            path = block + "/" + ("kernel" if sub in ("conv", "deconv")
+                                  else "alpha" if leaf == "alpha"
+                                  else _REF_BN[leaf])
+        else:
+            attr = {"conv": "conv_kernel", "deconv": "conv_kernel",
+                    "conv_col": "conv_kernel/0", "conv_row": "conv_kernel/1",
+                    "res_conv": "res_kernel",
+                    "res_prelu": "residual_alpha"}.get(sub)
+            if attr is None:
+                part, kind = sub.rsplit("_", 1)
+                attr = (f"{part}_kernel" if kind == "conv" else
+                        f"{part}_alpha" if kind == "prelu" else
+                        f"{part}_{_REF_BN[leaf]}")
+            path = f"{block}/{attr}"
+        out[f"model/{path}{_REF_SUFFIX}"] = np.ascontiguousarray(a)
+    return out
+
+
+def check_importer(seed: int) -> dict:
+    """Phase 14d: the reference-checkpoint importer without TensorFlow.
+    A seeded ENet-19 with the multiscale heads, as the reference's
+    variables (reference_variables, with its epoch, step, save counter
+    and an optimizer slot), through ``tf_import.convert_reference_variables``:
+    every tensor must come back bit-equal, and ``load_into`` must place
+    each. The imported model serves a batch of 2 at 1024x2048 through #1,
+    #3 and #5 with the original model's labels. Then once more with
+    FB_PLANES input planes (``--modality-channels 4``): a 3-plane model
+    must refuse its first conv, and the imported model must score a
+    batch through #7 as the original does. Returns the launches by
+    kernel of the 3-plane serving."""
+    from semanticsegmentationactivelearning_tpu_torch.models import (
+        get_model)
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        decoder, front, mid, tail)
+    from semanticsegmentationactivelearning_tpu_torch.train import tf_import
+    rng = np.random.default_rng(seed + 60)
+    launches = {}
+    for planes in (3, FB_PLANES):
+        model = get_model("ENet", CLASSES, multiscale_heads=True,
+                          in_channels=planes)
+        state = seeded_state_dict(model, seed + planes)
+        model.load_state_dict(state)
+        named = reference_variables(state)
+        named.update({
+            f"epoch{_REF_SUFFIX}": np.int64(7),
+            f"step{_REF_SUFFIX}": np.int64(123),
+            f"save_counter{_REF_SUFFIX}": np.int64(7),
+            "model/Initial/kernel/.OPTIMIZER_SLOT/optimizer/m"
+            f"{_REF_SUFFIX}": np.zeros(1, np.float32)})
+        conv = tf_import.convert_reference_variables(named)
+        got = conv["state_dict"]
+        unequal = [k for k in state if k not in got
+                   or not torch.equal(got[k], state[k])]
+        imported = get_model("ENet", CLASSES, multiscale_heads=True,
+                             in_channels=planes)
+        report = tf_import.load_into(imported, conv)
+        refused = tf_import.merge_report(
+            get_model("ENet", CLASSES, multiscale_heads=True).state_dict(),
+            conv)["mismatched"]
+        print(f"importer 14d ({planes} planes): {len(named)} reference "
+              f"variables -> {len(got)} tensors, {len(unequal)} not "
+              f"bit-equal {unequal[:3]}; epoch {conv['epoch']}, step "
+              f"{conv['step']}, save counter {conv.get('save_counter')}, "
+              f"skipped {conv['skipped']}; merged {report['merged']}, "
+              f"missing {report['missing']}, mismatched "
+              f"{report['mismatched']}; a 3-plane ENet refuses "
+              f"{[k for k, _, _ in refused]}")
+        if unequal or set(got) != set(state) or report["merged"] != len(state) \
+                or report["missing"] or report["mismatched"] \
+                or (conv["epoch"], conv["step"], conv.get("save_counter")) \
+                != (7, 123, 7) or len(conv["skipped"]) != 1 \
+                or [k for k, _, _ in refused] != (
+                    [] if planes == 3 else ["Initial.conv.weight"]):
+            raise AssertionError("the importer did not map the reference's "
+                                 "variables back bit-equal")
+        model, imported = model.to(DEV).eval(), imported.to(DEV).eval()
+        if planes == 3:
+            image = torch.from_numpy(rng.integers(
+                0, 256, (N, H, W, 3), dtype=np.uint8)).to(DEV).float() / 255.0
+            want = model.fused_predict(image)
+            wrappers = (front.fused_front_stage1, mid.fused_mid_stage23,
+                        tail.fused_tail_predict)
+            for fn in wrappers:
+                fn.launches = 0
+            labels = imported.fused_predict(image)
+            launches = dict(zip(("front", "mid", "tail"),
+                                (fn.launches for fn in wrappers)))
+            same = torch.equal(labels, want)
+            print(f"importer 14d: the imported ENet-19 serves batch {N} at "
+                  f"{H}x{W} with launches {launches}; labels equal the "
+                  f"original's: {same}")
+            if not same or launches != {
+                    "front": front.LAUNCHES_PER_CALL,
+                    "mid": mid.LAUNCHES_PER_CALL,
+                    "tail": tail.LAUNCHES_PER_CALL}:
+                raise AssertionError("the imported model does not serve as "
+                                     "the original")
+        else:
+            image = torch.from_numpy(rng.integers(
+                0, 256, (N, SH, SW, planes), dtype=np.uint8)).to(DEV)
+            image = image.float() / 255.0
+            before = decoder.fused_decoder_entropy_score.launches
+            got = imported.fused_score(image, "entropy")
+            want = model.fused_score(image, "entropy")
+            print(f"importer 14d: the imported {planes}-plane ENet-19 scores "
+                  f"{got.tolist()} through #7 "
+                  f"({decoder.fused_decoder_entropy_score.launches - before}"
+                  f" launches for both), the original {want.tolist()}")
+            if not torch.equal(got, want):
+                raise AssertionError("the imported 4-plane model does not "
+                                     "score as the original")
+        del model, imported
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3277,6 +3869,20 @@ def main(argv=None) -> int:
             launches[k] += v
         print(f"icnet train: phase 13 in {time.perf_counter() - t13:.1f} s")
 
+    # 14. Freiburg multi-modal and the migration entries
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fb_rec = freiburg_etl(args.seed, tmp)
+        fb = check_freiburg(args.seed)
+        torch.cuda.empty_cache()
+        fb_launches_al, fb_timing = run_freiburg_clis(args.seed, fb_rec, tmp)
+        launches["decoder_score"] += fb_launches_al
+    torch.cuda.empty_cache()
+    for k, v in check_importer(args.seed).items():
+        launches[k] += v
+    print(f"freiburg: phase 14 in {time.perf_counter() - t14:.1f} s")
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
         raise AssertionError(f"imported JAX or the JAX package: {leaked}")
@@ -3338,6 +3944,16 @@ def main(argv=None) -> int:
             f"{k} {timing[0][k]}" for k in ("train_s", "score_select_s",
                                             "round_s"))
             + f" (cut {AL_CONF} made ICNet's, 32 + 4 records; {smi})")
+    r = fb["decoder_score"]
+    print(f"freiburg: decoder_score (#7) {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']}), max |k-p| {r['max_abs_err']:.3e}; "
+          f"{fb_launches_al} launches in the AL pool pass; train "
+          f"{fb['train_ms']:.3f} ms/step; al round " + ", ".join(
+              f"{k} {fb_timing[0][k]}" for k in ("train_s", "score_select_s",
+                                                 "round_s"))
+          + f" (batch {FN}, {FH}x{FW}, ENet-{FB_CLASSES}, {FB_PLANES} "
+          f"planes, {FB_CONF}; {smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

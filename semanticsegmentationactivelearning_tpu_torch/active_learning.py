@@ -53,9 +53,14 @@ batching, but they are not the JAX CLI's crops, whose PRNG stream the
 port does not reproduce, so the two CLIs' scores and selections differ.
 
 It runs ENet and ICNet (ICNet's rounds train with the conf's loss;
-``"softmax": {"multiscale": true}`` takes its cascade heads). Not ported
-(each raises before any training and names its ROADMAP.md item): bf16
-models (item 2), ``--modalities`` (item 7).
+``"softmax": {"multiscale": true}`` takes its cascade heads). ``freiburg
+-m MOD ...`` stacks each record's extra modalities after its RGB planes
+in every loader (labelled, validation, test and pool) and builds the
+model with that many input planes; the pool pass, the pseudo step and
+core-set's embed pass take all of them. ENet ranks such a pool through
+the plain encoder and the decoder score kernel, ICNet through its plain
+forward. Not ported (it raises before any training and names its
+ROADMAP.md item): bf16 models (item 2).
 ``score_group`` and ``train_group`` are read and ignored: grouped
 dispatch is not ported, and per-example crops make the score the same
 either way. With several GPUs it runs on the first (Queue 1 item 9).
@@ -224,11 +229,13 @@ def rank_plan(train_loader, batch_size: int, in_hw, bucket_conf="auto"):
                         100 * saving, train_loader.storage_hw)
             return [(idx, loader.RecordLoader(
                 files, batch_size, storage_hw=hw,
-                channels=train_loader.channels, with_label=False))
+                channels=train_loader.channels,
+                modalities=train_loader.modalities, with_label=False))
                 for idx, hw in plan]
     return [(np.arange(len(files)), loader.RecordLoader(
         files, batch_size, storage_hw=train_loader.storage_hw,
-        channels=train_loader.channels, with_label=False))]
+        channels=train_loader.channels,
+        modalities=train_loader.modalities, with_label=False))]
 
 
 def pool_outputs(step, plan, pass_key, crop_hw, channels: int, device,
@@ -324,10 +331,6 @@ def select_lowest(confidence: np.ndarray, unlabelled: np.ndarray,
 def _check_ported(args, params) -> None:
     """Raise, naming its ROADMAP.md item, on what is not ported."""
     alparams = params["active_learning"]
-    if [m for m in (getattr(args, "modalities", None) or ())
-            if m not in ("rgb", "image")]:
-        raise _not_ported("--modalities (extra input planes; the port's "
-                          "Initial takes RGB)", "7")
     model_name = params["network"]["model"]
     if params["network"].get("dtype") in ("bfloat16", "bf16"):
         raise _not_ported("A bf16 model (network.dtype)", "2")
@@ -381,16 +384,22 @@ def main(args) -> int:
     batch_size = params["batch_size"]
     train_sampler = sampler.IndexSampler(
         train_examples, rng=np.random.default_rng(args.seed + 1))
+    # extra modalities stack after the RGB planes in every loader
+    # (active_learning.py:231-290)
+    modalities = cli.extra_modalities(args)
     train_loader = loader.RecordLoader(train_examples, batch_size,
-                                       min_hw=in_hw)
+                                       min_hw=in_hw, modalities=modalities)
     in_channels = train_loader.channels
+    if modalities:
+        logger.info("Stacking modalities %s -> %d input channels",
+                    list(modalities), in_channels)
     plan = rank_plan(train_loader, batch_size, in_hw,
                      alparams.get("size_buckets", "auto"))
     val_loader = loader.RecordLoader(val_examples, batch_size,
-                                     min_hw=in_hw) \
+                                     min_hw=in_hw, modalities=modalities) \
         if len(val_examples) else None
     test_loader = loader.RecordLoader(test_examples, batch_size,
-                                      min_hw=in_hw) \
+                                      min_hw=in_hw, modalities=modalities) \
         if len(test_examples) else None
     if device.type == "cuda":
         logger.info("Running on %s", torch.cuda.get_device_name(device))
@@ -408,7 +417,7 @@ def main(args) -> int:
 
     # model, optimizer and state (active_learning.py:293-336)
     model_name = params["network"]["model"]
-    model = get_model(model_name, num_classes,
+    model = get_model(model_name, num_classes, in_channels=in_channels,
                       **conf_model_kwargs(model_name, hparams)).to(device)
     # the decay steps: batches an epoch over the initially labelled set
     steps_per_epoch = -(-max(len(labelled), 1) // batch_size)

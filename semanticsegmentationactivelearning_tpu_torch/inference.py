@@ -4,7 +4,8 @@ prediction PNGs (the counterpart of the JAX package's root
 
     python -m semanticsegmentationactivelearning_tpu_torch.inference \\
         -c CKPT -d DATA_DIR -o OUT -t cityscapes [-m {ENet,ICNet}] \\
-        [-b BATCH] [-s H W] [--color] [--device {cuda,cpu}]
+        [-b BATCH] [-s H W] [--color] [--modalities MOD ...] \\
+        [--device {cuda,cpu}]
 
 Reads every ``.tfrecord`` under the data directory (or its test/
 subdirectory), serves each batch through :func:`make_predict_fn` on
@@ -16,11 +17,14 @@ or the colormap (``--color``). ``-c`` takes a port checkpoint or one
 written by the JAX package. ``--output-size H W`` serves through the
 plain forward instead: the class probabilities are resized to H x W
 (antialiased on the way down, as ``jax.image.resize``) before the
-argmax.
+argmax. ``--modalities MOD ...`` stacks each record's extra modalities
+after its RGB planes and builds the model with that many input planes
+(a checkpoint trained on other planes fails to load with a shape
+error); the kernel chains take RGB only, so such a model serves through
+the plain forward, as the JAX CLI's does.
 
-Not ported yet (each raises and names its ROADMAP.md item):
-``--modalities`` and ``--view``. Serving uses one device; multi-GPU
-serving is not ported either.
+Not ported yet (it raises and names its ROADMAP.md item): ``--view``.
+Serving uses one device; multi-GPU serving is not ported either.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from .data.device_prefetch import device_prefetch
-from .models import get_model
+from .models import get_model, model_class
 from .ops import nn as xops
 from .train import checkpoint as ckpt
 from .utils import cli
@@ -43,38 +47,46 @@ from .utils import cli
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    "modalities": "--modalities (extra input planes, no fused front for "
-                  "them) is not ported yet: ROADMAP.md Queue 1 item 7",
     "view": "--view (the live matplotlib viewer) is not ported yet: "
             "ROADMAP.md Queue 1 item 7",
 }
+
+
+def kernel_route(in_channels: int, out_hw=None) -> bool:
+    """Whether :func:`make_predict_fn` serves through
+    ``model.fused_predict`` (the JAX CLI's ``applicable``, root
+    inference.py:63-64): no resize and an RGB input."""
+    return out_hw is None and in_channels == 3
 
 
 def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
                     in_channels: int, device, out_hw=None):
     """The serving hot path: a uint8 record stack ``[B, H, W, >=C]`` on
     ``device`` -> uint8 label (or colormap) maps cropped to
-    ``height x width``, all on ``device``. The forward is
-    ``model.fused_predict`` (ENet's or ICNet's): the kernel chain on
-    CUDA, its plain version on the CPU. argmax(logits) equals the
-    reference's argmax after softmax.
+    ``height x width``, all on ``device``. Where :func:`kernel_route`
+    holds, the forward is ``model.fused_predict`` (ENet's or ICNet's):
+    the kernel chain on CUDA, its plain version on the CPU.
+    argmax(logits) equals the reference's argmax after softmax.
 
-    With ``out_hw`` the maps are ``out_hw`` instead, as the JAX
-    ``make_predict_fn(out_hw=...)`` computes them: the plain forward,
-    the logits cropped to ``height x width``, softmax, a bilinear resize
-    of the probabilities (antialiased on the way down), argmax."""
+    Otherwise the plain forward, as the JAX ``make_predict_fn``
+    computes it: the logits cropped to ``height x width``, softmax, with
+    ``out_hw`` a bilinear resize of the probabilities to ``out_hw``
+    (antialiased on the way down), argmax."""
     device = torch.device(device)
     model = model.to(device).eval()
     lut = lut.to(device)
+    fused = kernel_route(in_channels, out_hw)
 
     @torch.inference_mode()
     def predict(stack: torch.Tensor) -> torch.Tensor:
         image = stack[..., :in_channels].float().div_(255.0).contiguous()
-        if out_hw is None:
+        if fused:
             pred = model.fused_predict(image)
             return lut[pred[:, :height, :width].long()]
         prob = torch.softmax(model(image)[:, :height, :width], dim=-1)
-        return lut[xops.resize_bilinear(prob, out_hw).argmax(dim=-1)]
+        if out_hw is not None:
+            prob = xops.resize_bilinear(prob, out_hw)
+        return lut[prob.argmax(dim=-1)]
 
     return predict
 
@@ -147,12 +159,20 @@ def main(args) -> int:
     logger.info("Input records: %dx%dx%d, %d examples", height, width,
                 channels, len(files))
     logger.info("Model: %s", model_name)
-    model = get_model(model_name, dataset.num_classes)
-    div = model.input_divisor
+    div = model_class(model_name).input_divisor
     store_hw = (-(-height // div) * div, -(-width // div) * div)
-
+    # extra modalities stack after the RGB planes, and the model takes
+    # as many input planes as the records give (inference.py:169-190)
+    modalities = cli.extra_modalities(args)
     rec_loader = loader.RecordLoader(files, args.batch_size,
-                                     storage_hw=store_hw, with_label=False)
+                                     storage_hw=store_hw,
+                                     modalities=modalities, with_label=False)
+    in_channels = rec_loader.channels
+    if modalities:
+        logger.info("Stacking modalities %s -> %d input channels",
+                    list(modalities), in_channels)
+    model = get_model(model_name, dataset.num_classes,
+                      in_channels=in_channels)
 
     logger.info("Loading checkpoint %s", args.ckpt)
     ckpt.restore_checkpoint(args.ckpt, model)
@@ -164,6 +184,10 @@ def main(args) -> int:
     if out_hw is not None:
         logger.info("Serving on %s through the plain forward, as "
                     "--output-size %dx%d asks", device, *out_hw)
+    elif not kernel_route(in_channels):
+        logger.info("Serving on %s through the plain forward: the kernel "
+                    "chain takes RGB, the model %d input planes", device,
+                    in_channels)
     elif device.type == "cuda":
         logger.info("Serving on %s (kernel chain)",
                     torch.cuda.get_device_name(device))
@@ -174,8 +198,7 @@ def main(args) -> int:
                     "ported yet (ROADMAP.md Queue 1 item 9)",
                     torch.cuda.device_count())
     predict = make_predict_fn(model, torch.as_tensor(np.asarray(lut)),
-                              height, width, rec_loader.channels, device,
-                              out_hw)
+                              height, width, in_channels, device, out_hw)
 
     written = 0
     with png_writer.AsyncPngWriter() as writer:
@@ -224,7 +247,8 @@ def parse_arguments(argv=None):
                         dest="color")
     parser.add_argument("--modalities", type=str, nargs="+", default=[],
                         dest="modalities",
-                        help="Extra record modalities (not ported yet).")
+                        help="Extra record modalities, stacked after the "
+                             "RGB planes.")
     parser.add_argument("-b", "--batch-size", type=int, default=1,
                         dest="batch_size",
                         help="Images per predict call.")

@@ -24,6 +24,13 @@ kernels of ``ops/kernels``; :meth:`ENet.fused_score` routes the
 acquisition score through the front, mid and one of the three score
 kernels.
 
+``in_channels`` (default 3) sets the input planes the Initial block
+takes (``16 - in_channels`` conv filters beside the max pool of every
+plane), as flax infers it from the input: more than 3 with stacked
+modalities (the Freiburg NIR plane). Such a model scores through the
+plain encoder and the decoder score kernel; :meth:`ENet.fused_predict`
+takes RGB only.
+
 Training: ``forward(x, training=True, generator=g)`` normalises with the
 batch's statistics, updates the running ones and applies spatial
 dropout at the stage's rate of ``drop_rates`` (Bottleneck1_*: the first,
@@ -79,7 +86,7 @@ class ENet(PackedModel):
 
     def __init__(self, num_classes: int,
                  drop_rates: Sequence[float] = (0.01, 0.1, 0.1, 0.1, 0.1),
-                 multiscale_heads: bool = False):
+                 multiscale_heads: bool = False, in_channels: int = 3):
         super().__init__()
         if len(drop_rates) != 5:
             raise ValueError(
@@ -88,7 +95,8 @@ class ENet(PackedModel):
         self.num_classes = num_classes
         self.drop_rates = dr
         self.multiscale_heads = multiscale_heads
-        self.Initial = Initial(3, 16)
+        self.in_channels = in_channels
+        self.Initial = Initial(in_channels, 16)
         self.Bottleneck1_0 = BottleneckDownsample(16, 64, drop_rate=dr[0])
         self.stage1 = add_blocks(self, (
             (f"Bottleneck1_{i}", Bottleneck(64, drop_rate=dr[0]))

@@ -17,6 +17,12 @@
 - Head: fused8 -> 2x upsample -> 1x1 classifier (with bias) at 1/4 ->
   4x upsample to full-resolution logits.
 
+``in_channels`` (default 3) sets the input planes of Branch1_1 and the
+stem's conv1_1, as flax infers them: more than 3 with stacked
+modalities. Such a model scores and serves through its plain forward
+(the JAX ``ICNet.fused_score``'s route for them); the front kernels
+take RGB only.
+
 Submodules carry the flax names (``Branch1_1``, ``SharedStem``,
 ``res2_1``, ``LowResTail``, ``CFF1``, ``CFF2``, ``Classifier``, ...), so
 ``train/bridge.py`` maps the flax tree one to one. BN eps is 1e-3 and
@@ -143,9 +149,9 @@ class SharedStem(nn.Module):
     input): conv1_1 (s2) -> conv1_2 -> conv1_3 -> 3x3/s2 max pool ->
     res2_1..3 -> res3_1 (s2)."""
 
-    def __init__(self):
+    def __init__(self, in_channels: int = 3):
         super().__init__()
-        self.conv1_1 = ConvBN(3, 32, 3, stride=2)
+        self.conv1_1 = ConvBN(in_channels, 32, 3, stride=2)
         self.conv1_2 = ConvBN(32, 32, 3)
         self.conv1_3 = ConvBN(32, 64, 3)
         self.res2 = add_blocks(self, (
@@ -210,16 +216,18 @@ class ICNet(PackedModel):
     # draws anew (the -r flag)
     output_module = "Classifier"
 
-    def __init__(self, num_classes: int, drop_rates: Sequence[float] = ()):
+    def __init__(self, num_classes: int, drop_rates: Sequence[float] = (),
+                 in_channels: int = 3):
         super().__init__()
         self.num_classes = num_classes
+        self.in_channels = in_channels
         # taken as the JAX dataclass takes it (the CLIs build every model
         # with the conf's rates); ICNet has no dropout layer to use them
         self.drop_rates = tuple(float(r) for r in drop_rates)
-        self.Branch1_1 = ConvBN(3, 32, 3, stride=2)
+        self.Branch1_1 = ConvBN(in_channels, 32, 3, stride=2)
         self.Branch1_2 = ConvBN(32, 32, 3, stride=2)
         self.Branch1_3 = ConvBN(32, 64, 3, stride=2)
-        self.SharedStem = SharedStem()
+        self.SharedStem = SharedStem(in_channels)
         self.LowResTail = LowResTail()
         self.CFF1 = CascadeFeatureFusion(256, 256, 128, num_classes)
         self.CFF2 = CascadeFeatureFusion(128, 64, 128, num_classes)

@@ -21,8 +21,10 @@ resumes from ``-c`` or from the log directory's latest checkpoint (a
 port training checkpoint whole; a JAX one's weights, step and epoch).
 
 It trains ENet and ICNet (ICNet's conf, ``conf/icnet_cityscapes.json``,
-takes the cascade loss over its three heads). bf16 models (ROADMAP.md
-Queue 1 item 2) and ``--modalities`` (Queue 1 item 7) raise.
+takes the cascade loss over its three heads). ``freiburg -m MOD ...``
+stacks each record's extra modalities after its RGB planes (``rgb`` and
+``image`` name the RGB planes themselves) and builds the model with that
+many input planes. bf16 models (ROADMAP.md Queue 1 item 2) raise.
 ``train_group`` is read and ignored (grouped dispatch is not ported),
 and with several GPUs it trains on the first (multi-GPU training is
 Queue 1 item 9).
@@ -80,10 +82,6 @@ def run_eval_epoch(eval_step, val_loader, crop_hw, num_classes, device,
 
 
 def main(args) -> int:
-    if [m for m in (getattr(args, "modalities", None) or ())
-            if m not in ("rgb", "image")]:
-        raise _not_ported("--modalities (extra input planes; the port's "
-                          "Initial takes RGB)", "7")
     params = args.params
     hparams = params["hyperparams"]
     model_name = params["network"]["model"]
@@ -105,10 +103,17 @@ def main(args) -> int:
     if not train_files:
         logger.error("No training records under %s", args.data_dir)
         return 1
-    train_loader = loader.RecordLoader(train_files, batch_size, min_hw=in_hw)
+    # extra modalities stack after the RGB planes (train.py:100-133)
+    modalities = cli.extra_modalities(args)
+    train_loader = loader.RecordLoader(train_files, batch_size, min_hw=in_hw,
+                                       modalities=modalities)
     in_channels = train_loader.channels
-    val_loader = loader.RecordLoader(val_files, batch_size, min_hw=in_hw) \
+    val_loader = loader.RecordLoader(val_files, batch_size, min_hw=in_hw,
+                                     modalities=modalities) \
         if val_files else None
+    if modalities:
+        logger.info("Stacking modalities %s -> %d input channels",
+                    list(modalities), in_channels)
     train_batches = -(-len(train_files) // batch_size)
     logger.info("%d train / %d val examples", len(train_files),
                 len(val_files))
@@ -126,6 +131,7 @@ def main(args) -> int:
                     int(params["train_group"]))
 
     model = get_model(model_name, dataset.num_classes,
+                      in_channels=in_channels,
                       **conf_model_kwargs(model_name, hparams)).to(device)
     optimizer, scheduler = optim.make_optimizer(model.parameters(), hparams,
                                                 train_batches)

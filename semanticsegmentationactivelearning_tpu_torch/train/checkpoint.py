@@ -13,7 +13,10 @@ kind, or of a checkpoint written by the JAX package (through
 ``train/bridge.py``); :func:`restore_training_state` resumes a run from
 either kind, or from a JAX checkpoint's weights, step and epoch with a
 fresh optimizer: optax's moments are one raveled ``optax.flatten``
-buffer that maps onto no ``torch.optim`` state.
+buffer that maps onto no ``torch.optim`` state. A model restores only
+weights of its own number of input planes (:func:`input_planes`): a
+multi-modal checkpoint needs a model built with its ``in_channels``,
+and any other model raises a ``ValueError`` that names both counts.
 :func:`reinitialize_final_layer` draws the output layer anew (the AL
 CLI's ``-r``).
 
@@ -44,6 +47,35 @@ logger = logging.getLogger(__name__)
 
 CKPT_EXT = ".ckpt"
 STATE_FILE = "checkpoint.json"
+
+
+# the first conv of each model: its weight is [out, in_channels, kh, kw]
+_INPUT_CONVS = ("Initial.conv.weight", "Branch1_1.conv.weight")
+
+
+def input_planes(state: Dict[str, torch.Tensor]) -> Optional[int]:
+    """The input planes a model ``state_dict`` takes (3 for RGB, more
+    with stacked modalities), or None where it has no known first
+    conv."""
+    for key in _INPUT_CONVS:
+        if key in state:
+            return int(state[key].shape[1])
+    return None
+
+
+def _load_model(model: nn.Module, state, path: str) -> None:
+    """``model.load_state_dict(state)`` behind a check of the input
+    planes, whose mismatch would otherwise surface as a bare size
+    error."""
+    planes = input_planes(state)
+    want = getattr(model, "in_channels", None)
+    if planes is not None and want is not None and planes != want:
+        raise ValueError(
+            f"checkpoint {path} takes {planes} input planes, the "
+            f"{type(model).__name__} it is restored into {want}: build "
+            f"the model with in_channels={planes} (or pass the "
+            f"modalities it was trained with)")
+    model.load_state_dict(state)
 
 
 def _atomic_save(obj, path: str) -> str:
@@ -143,7 +175,7 @@ def restore_checkpoint(path: str, model: Optional[nn.Module] = None
         if _is_training_payload(state):
             state = state["model"]
     if model is not None:
-        model.load_state_dict(state)
+        _load_model(model, state, path)
     return state
 
 
@@ -158,7 +190,7 @@ def restore_training_state(path: str, state):
     path = _resolve(path)
     if bridge.is_jax_checkpoint(path):
         tree = bridge.read_jax_checkpoint(path)
-        state.model.load_state_dict(bridge.state_dict_from_flax(tree))
+        _load_model(state.model, bridge.state_dict_from_flax(tree), path)
         state.step = int(tree.get("step", 0))
         state.epoch = int(tree.get("epoch", 0))
         optim.set_schedule_step(state.scheduler, state.step)
@@ -169,11 +201,11 @@ def restore_training_state(path: str, state):
         return state
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if not _is_training_payload(payload):
-        state.model.load_state_dict(payload)
+        _load_model(state.model, payload, path)
         logger.info("model checkpoint %s: weights restored, the optimizer "
                     "starts fresh", path)
         return state
-    state.model.load_state_dict(payload["model"])
+    _load_model(state.model, payload["model"], path)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.scheduler.load_state_dict(payload["scheduler"])
     state.step = int(payload["step"])
@@ -265,6 +297,10 @@ class CheckpointManager:
     @property
     def save_counter(self) -> int:
         return self._save_counter
+
+    def set_save_counter(self, value: int) -> None:
+        """Re-seed the counter (the importer keeps the reference's)."""
+        self._save_counter = int(value)
 
     def _next_path(self, prefix: str) -> str:
         self._save_counter += 1

@@ -125,6 +125,14 @@ def build_dataset_parser(prog: str, extra_optional=None,
     return top_parser
 
 
+def extra_modalities(args) -> tuple:
+    """The ``-m/--modalities`` (Freiburg) that stack after the RGB
+    planes: every name but ``rgb`` and ``image``, which are the RGB
+    planes themselves."""
+    return tuple(m for m in (getattr(args, "modalities", None) or ())
+                 if m not in ("rgb", "image"))
+
+
 def parse_dataset_args(prog: str, argv=None, extra_optional=None):
     parser = build_dataset_parser(prog, extra_optional)
     argv = sys.argv[1:] if argv is None else argv

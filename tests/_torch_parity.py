@@ -78,14 +78,14 @@ def port_model(variables, num_classes):
     return model
 
 
-def icnet_variables(num_classes, hw, seed):
+def icnet_variables(num_classes, hw, seed, channels=3):
     """A JAX ICNet and its variables by flax's initial laws
     (:func:`_drawn_variables`) plus N(0, 0.1) on every BatchNorm mean and
     |N(0, 0.3)| on every variance. ENet's recipe (|N| on the means too)
     leaves ICNet's ReLU outputs all zero after a few blocks, which would
-    make every comparison vacuous."""
+    make every comparison vacuous. ``channels``: the input planes."""
     model = JaxICNet(num_classes=num_classes)
-    v = _drawn_variables(model, np.zeros((1, *hw, 3), np.float32), seed,
+    v = _drawn_variables(model, np.zeros((1, *hw, channels), np.float32), seed,
                          rngs=("params",))
     rng = np.random.default_rng(seed)
 
@@ -137,13 +137,14 @@ def fast_jit(fn, *args):
 
 
 def seeded_port_enet(num_classes, seed, drop_rates=(0.0,) * 5,
-                     multiscale_heads=True):
-    """The port's ENet with glorot weights from a seeded generator and
-    |N(0, 0.3)| added to its BN statistics (numpy, ``seed``)."""
+                     multiscale_heads=True, in_channels=3):
+    """The port's ENet (of ``in_channels`` input planes) with glorot
+    weights from a seeded generator and |N(0, 0.3)| added to its BN
+    statistics (numpy, ``seed``)."""
     from semanticsegmentationactivelearning_tpu_torch.models.blocks import (
         BatchNorm, reset_parameters)
     model = ENet(num_classes, drop_rates=drop_rates,
-                 multiscale_heads=multiscale_heads)
+                 multiscale_heads=multiscale_heads, in_channels=in_channels)
     reset_parameters(model, torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     with torch.no_grad():
@@ -220,10 +221,11 @@ def train_hyperparams(multiscale, opt="SGD", lr=5e-4):
                         "loginverse_scaling": 0.0 if multiscale else 1.02}}
 
 
-def train_batch(seed=3):
-    """A seeded float64 batch of 2 at TRAIN_HW, 10% of it masked."""
+def train_batch(seed=3, channels=3):
+    """A seeded float64 batch of 2 at TRAIN_HW (``channels`` planes),
+    10% of it masked."""
     rng = np.random.default_rng(seed)
-    return {"image": rng.uniform(size=(2, *TRAIN_HW, 3)),
+    return {"image": rng.uniform(size=(2, *TRAIN_HW, channels)),
             "label": rng.integers(0, TRAIN_C, (2, *TRAIN_HW))
             .astype(np.int32),
             "mask": (rng.uniform(size=(2, *TRAIN_HW)) > 0.1)
@@ -274,26 +276,27 @@ def pseudo_cfg():
 _JAX_TRAIN_STEPS = {}
 
 
-def jax_train_step(multiscale, pseudo=False):
+def jax_train_step(multiscale, pseudo=False, channels=3):
     """The JAX step's outputs in float64, computed once a case:
     ((metrics, gradients, new BN statistics), the initial flax
     variables). With ``pseudo``, the pseudo-labelling step on
     ``pseudo_batch()`` at ``pseudo_cfg()``; its metrics also hold the
     mixed targets (``mixed_label``, ``mixed_mask``), computed as the
-    JAX step computes them (train/steps.py:172-186)."""
-    if (multiscale, pseudo) not in _JAX_TRAIN_STEPS:
-        _JAX_TRAIN_STEPS[multiscale, pseudo] = _run_jax_train_step(
-            multiscale, pseudo)
-    return _JAX_TRAIN_STEPS[multiscale, pseudo]
+    JAX step computes them (train/steps.py:172-186). ``channels``: the
+    input planes of the model and of ``train_batch``."""
+    key = (multiscale, pseudo, channels)
+    if key not in _JAX_TRAIN_STEPS:
+        _JAX_TRAIN_STEPS[key] = _run_jax_train_step(*key)
+    return _JAX_TRAIN_STEPS[key]
 
 
-def _run_jax_train_step(multiscale, pseudo):
+def _run_jax_train_step(multiscale, pseudo, channels=3):
     from semanticsegmentationactivelearning_tpu.ops import (
         acquisition as jax_acquisition)
-    model = seeded_port_enet(TRAIN_C, 0,
-                             multiscale_heads=multiscale).double()
+    model = seeded_port_enet(TRAIN_C, 0, multiscale_heads=multiscale,
+                             in_channels=channels).double()
     variables = flax_variables(model)
-    batch = pseudo_batch() if pseudo else train_batch()
+    batch = pseudo_batch() if pseudo else train_batch(channels=channels)
     cfg = pseudo_cfg() if pseudo else None
     keep_grads = optax.GradientTransformation(
         lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
@@ -335,18 +338,18 @@ def _run_jax_train_step(multiscale, pseudo):
 
 
 def port_train_step(multiscale, opt="SGD", lr=5e-4, dtype=torch.float64,
-                    pseudo=False):
+                    pseudo=False, channels=3):
     """One step of the port on the seeded ENet and ``train_batch()``
     (with ``pseudo``: the pseudo-labelling step on ``pseudo_batch()``):
     (the state after it, its metrics)."""
-    model = seeded_port_enet(TRAIN_C, 0,
-                             multiscale_heads=multiscale).to(dtype)
+    model = seeded_port_enet(TRAIN_C, 0, multiscale_heads=multiscale,
+                             in_channels=channels).to(dtype)
     hp = train_hyperparams(multiscale, opt, lr)
     optimizer, scheduler = optim.make_optimizer(model.parameters(), hp)
     state = steps.create_train_state(model, optimizer, scheduler)
     step = steps.make_train_step(model, TRAIN_C, hp,
                                  pseudo_cfg=pseudo_cfg() if pseudo else None)
-    batch = pseudo_batch() if pseudo else train_batch()
+    batch = pseudo_batch() if pseudo else train_batch(channels=channels)
     metrics = step(state, port_train_batch(batch, dtype))
     return state, metrics
 
@@ -362,10 +365,12 @@ def optax_updated(variables, grads, tx):
             np.asarray, jax.jit(apply)(grads, variables["params"]))
 
 
-def check_sgd_step(multiscale, pseudo=False):
+def check_sgd_step(multiscale, pseudo=False, channels=3):
     """One SGD step of the port against the JAX step's."""
-    (want, grads, new_stats), variables = jax_train_step(multiscale, pseudo)
-    state, got = port_train_step(multiscale, pseudo=pseudo)
+    (want, grads, new_stats), variables = jax_train_step(multiscale, pseudo,
+                                                         channels)
+    state, got = port_train_step(multiscale, pseudo=pseudo,
+                                 channels=channels)
     assert state.step == 1
     for k in ("loss", "cost"):
         np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-5)

@@ -32,8 +32,9 @@ the baseline and ``-r`` runs hold 4 records out for it.
   ``softmax.multiscale``): one entropy round and one core-set round,
   checked as above, and BALD's ``ValueError`` (ICNet has no dropout)
   before ``state.json`` is written;
-- the default ``--device cuda`` raises without a card, and each conf
-  and flag that is not ported raises and names its ROADMAP item.
+- the default ``--device cuda`` raises without a card, a bf16 conf
+  raises and names its ROADMAP item, and ``-m nir`` on RGB records
+  raises the loader's missing-modality ``ValueError``.
 
 Measured: about 26 s on one process.
 """
@@ -420,15 +421,18 @@ def test_icnet_round(records, tmp_path, caplog, selection):
                                              weights_only=True)["model"]
 
 
-@pytest.mark.parametrize("over,extra,item", [
-    ({"network__dtype": "bfloat16"}, [], "item 2"),
-    ({}, ["-m", "rgb", "nir"], "item 7")])
-def test_not_ported_raises(records, tmp_path, over, extra, item):
+@pytest.mark.parametrize("over,extra,error,match", [
+    ({"network__dtype": "bfloat16"}, [], NotImplementedError, "item 2"),
+    # -m stacks the records' extra modalities: RGB records have no 'nir'
+    ({}, ["-m", "rgb", "nir"], ValueError, "has no 'nir' modality")])
+def test_not_ported_raises(records, tmp_path, over, extra, error, match):
     dataset = "freiburg" if extra else "cityscapes"
     log = tmp_path / "l"
     args = al.parse_args([dataset, "-d", str(records), "-l", str(log),
                           "-p", _conf(str(tmp_path), "n", **over),
                           "--device", "cpu", *extra])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         al.main(args)
-    assert not log.exists()
+    # the bf16 raise comes before anything is written, the loader's after
+    # state.json
+    assert log.exists() == (error is ValueError)

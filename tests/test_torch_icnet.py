@@ -59,8 +59,8 @@ from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
 from semanticsegmentationactivelearning_tpu_torch.train import (
     bridge, checkpoint, steps)
 
-from _torch_parity import (assert_labels_match, decided, icnet_variables,
-                           port_icnet, to_numpy_tree)
+from _torch_parity import (assert_labels_match, decided, fast_jit,
+                           icnet_variables, port_icnet, to_numpy_tree)
 
 HW = (64, 96)
 C = 5
@@ -236,27 +236,32 @@ def test_forward_matches_apply(setup, shape):
 def test_seams_match_jax(setup):
     """return_features8, return_pre_logits, fuse_from_front,
     fuse_to_cff1, fuse_from_stem1 and head_pre_logits against the JAX
-    seams, on the port's own intermediates."""
+    seams, on the port's own intermediates (one jitted reference: eager
+    flax dispatch compiles every op alone)."""
     jm, variables, tm = setup
     x = _image((1, *HW, 3), 6)
-    jx, tx = jnp.asarray(x), torch.from_numpy(x)
-    apply = lambda *a, **k: np.asarray(jm.apply(variables, *a, **k))
+    tx = torch.from_numpy(x)
     with torch.no_grad():
         fused8 = tm(tx, return_features8=True)
-        _close(fused8, apply(jx, training=False, return_features8=True))
-        _close(tm(tx, return_pre_logits=True),
-               apply(jx, training=False, return_pre_logits=True), LOGIT_TOL)
         f1, x_half = icnet_front.icnet_front_plain(tx, tm)
         stem1 = tm.SharedStem.front(x_half)
-        j = lambda t: jnp.asarray(t.numpy())
-        _close(tm.fuse_from_front(f1, x_half),
-               apply(j(f1), j(x_half), method=JaxICNet.fuse_from_front))
-        _close(tm.fuse_to_cff1(stem1),
-               apply(j(stem1), method=JaxICNet.fuse_to_cff1))
-        _close(tm.fuse_from_stem1(f1, stem1),
-               apply(j(f1), j(stem1), method=JaxICNet.fuse_from_stem1))
-        _close(tm.head_pre_logits(fused8),
-               apply(j(fused8), method=JaxICNet.head_pre_logits), LOGIT_TOL)
+        got = (fused8, tm(tx, return_pre_logits=True),
+               tm.fuse_from_front(f1, x_half), tm.fuse_to_cff1(stem1),
+               tm.fuse_from_stem1(f1, stem1), tm.head_pre_logits(fused8))
+
+    def seams(v, x, f1, x_half, stem1, fused8):
+        apply = lambda *a, **k: jm.apply(v, *a, **k)  # noqa: E731
+        return (apply(x, training=False, return_features8=True),
+                apply(x, training=False, return_pre_logits=True),
+                apply(f1, x_half, method=JaxICNet.fuse_from_front),
+                apply(stem1, method=JaxICNet.fuse_to_cff1),
+                apply(f1, stem1, method=JaxICNet.fuse_from_stem1),
+                apply(fused8, method=JaxICNet.head_pre_logits))
+
+    args = (variables, x, *(t.numpy() for t in (f1, x_half, stem1, fused8)))
+    want = fast_jit(seams, *args)(*args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, LOGIT_TOL if i in (1, 5) else FEATURE_TOL)
 
 
 # -- fused_score and the score step ------------------------------------------
@@ -305,11 +310,24 @@ def test_fused_score_route_matches_jax(setup, jax_entropy, monkeypatch,
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCORE_TOL)
 
 
-@pytest.mark.parametrize("measure", ["margin", "confidence"])
-def test_fused_score_other_measures_match_jax(setup, measure):
-    jm, variables, tm = setup
+@pytest.fixture(scope="module")
+def measure_scores(setup):
+    """The JAX package's margin and confidence scores of one image, in
+    one jitted call (eager flax dispatch compiles every op alone)."""
+    jm, variables, _ = setup
     x = _image((1, *HW, 3), 8)
-    want = jm.fused_score(variables, jnp.asarray(x), measure)
+    want = fast_jit(lambda v, x: {m: jm.fused_score(v, x, m) for m in
+                                  ("margin", "confidence")},
+                    variables, x)(variables, x)
+    return x, want
+
+
+@pytest.mark.parametrize("measure", ["margin", "confidence"])
+def test_fused_score_other_measures_match_jax(setup, measure_scores,
+                                              measure):
+    tm = setup[2]
+    x, want = measure_scores
+    want = want[measure]
     got = tm.fused_score(torch.from_numpy(x), measure)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCORE_TOL)
 

@@ -55,7 +55,9 @@ def one_thread():
 def jax_state():
     """A JAX TrainState for ENet-19 with noised BatchNorm statistics:
     ``train.create_train_state``'s init compiled with ``FAST_COMPILE``
-    (the same weights bit for bit, in about 10 s of its 17)."""
+    (the same weights bit for bit, in about 10 s of its 17), and the
+    CLI's optimizer state (its init jitted: eagerly each leaf's zeros
+    compile alone)."""
     model = JaxENet(num_classes=C)
     key = jax.random.PRNGKey(0)
     v = fast_jit(lambda k: model.init(
@@ -63,7 +65,8 @@ def jax_state():
         jnp.zeros((1, H, W, 3), jnp.float32), training=True,
         multiscale=False), key)(key)
     state = TrainState(params=v["params"], batch_stats=v["batch_stats"],
-                       opt_state=optim.make_optimizer({}).init(v["params"]),
+                       opt_state=jax.jit(optim.make_optimizer({}).init)(
+                           v["params"]),
                        step=jnp.zeros((), jnp.int32),
                        epoch=jnp.zeros((), jnp.int32))
     return model, state.replace(batch_stats=noised_stats(state.batch_stats,
@@ -221,13 +224,19 @@ def test_cli_on_a_jax_checkpoint(jax_logits, jax_ckpt, records, tmp_path):
         np.testing.assert_array_equal(got[mask[i]], want[i][mask[i]])
 
 
-@pytest.mark.parametrize("flag", [["-m", "ICNet", "--modalities", "nir"],
-                                  ["--modalities", "nir"], ["--view"]])
-def test_deferred_flags_name_their_roadmap_item(flag, tmp_path):
+@pytest.mark.parametrize("flag,error,match", [
+    # --modalities stacks the records' extra modalities, for either
+    # model: RGB records have no 'nir'
+    (["-m", "ICNet", "--modalities", "nir"], ValueError,
+     "has no 'nir' modality"),
+    (["--modalities", "nir"], ValueError, "has no 'nir' modality"),
+    (["--view"], NotImplementedError, "ROADMAP")])
+def test_deferred_flags_name_their_roadmap_item(records, flag, error, match,
+                                                tmp_path):
     args = inference.parse_arguments(
-        ["-c", "x", "-d", str(tmp_path), "-o", str(tmp_path / "o"),
+        ["-c", "x", "-d", str(records[0]), "-o", str(tmp_path / "o"),
          "-t", "cityscapes", "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         inference.main(args)
 
 

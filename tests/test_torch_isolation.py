@@ -5,6 +5,7 @@ imports JAX, flax, optax or the JAX package, and the port's own copies
 of the record modules read what the JAX package's writer wrote, and the
 reverse."""
 
+import ast
 import io
 import os
 import re
@@ -62,6 +63,32 @@ def test_no_jax_import(path):
         text = fp.read()
     bad = [m.group(0).strip() for m in JAX_IMPORT.finditer(text)]
     assert not bad, f"{path} imports the JAX side: {bad}"
+
+
+def test_tensorflow_only_in_the_importer():
+    """TensorFlow is imported in one place, inside
+    ``train/tf_import.convert_reference_checkpoint`` (the offline
+    migration path), so neither the package nor ``chip_smoke.py`` needs
+    it on a card's machine."""
+    found = []
+    for path in _sources():
+        with open(path) as fp:
+            tree = ast.parse(fp.read())
+        parents = {c: p for p in ast.walk(tree)
+                   for c in ast.iter_child_nodes(p)}
+        for node in ast.walk(tree):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else [node.module or ""] \
+                if isinstance(node, ast.ImportFrom) else []
+            if any(n.split(".")[0] == "tensorflow" for n in names):
+                scope = node
+                while scope in parents \
+                        and not isinstance(scope, ast.FunctionDef):
+                    scope = parents[scope]
+                found.append((os.path.relpath(path, PORT),
+                              getattr(scope, "name", None)))
+    assert found == [(os.path.join("train", "tf_import.py"),
+                      "convert_reference_checkpoint")]
 
 
 def test_the_scan_covers_the_rig_scripts():

@@ -24,7 +24,8 @@ from semanticsegmentationactivelearning_tpu.ops import pallas_kernels
 from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
     front, mid, tail)
 
-from _torch_parity import assert_labels_match, noised_variables, port_model
+from _torch_parity import (assert_labels_match, fast_jit, noised_variables,
+                           port_model)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 C = 5
@@ -49,6 +50,13 @@ def window_gap(x):
     return top2[..., 1] - top2[..., 0]
 
 
+def jax_logits(jm, variables, x):
+    """JAX ENet's eval logits, jitted (eager flax dispatch compiles every
+    op alone)."""
+    return fast_jit(lambda v, x: jm.apply(v, x, training=False),
+                    variables, x)(variables, x)
+
+
 @pytest.fixture(scope="module")
 def setup():
     x = np.random.default_rng(3).uniform(size=(1, 64, 64, 3)) \
@@ -70,8 +78,8 @@ def jax_front(setup):
 @pytest.fixture(scope="module")
 def jax_mid(setup, jax_front):
     jm, variables, _, _ = setup
-    y, sw2 = jm.apply(variables, jnp.asarray(jax_front[0]),
-                      method="forward_stage23")
+    y, sw2 = fast_jit(lambda v, x: jm.apply(v, x, method="forward_stage23"),
+                      variables, jax_front[0])(variables, jax_front[0])
     n, h8, w8, _ = y.shape
     return np.array(y), np.array(sw2).reshape(n, h8, w8, 64)
 
@@ -128,7 +136,7 @@ def test_tail_predict_matches_pallas_tail(setup, jax_front, jax_mid):
                                       torch.from_numpy(sw2),
                                       torch.from_numpy(mask1), tm)
     assert got.dtype == torch.int8 and got.shape == (1, 64, 64)
-    logits = jm.apply(variables, jnp.asarray(x), training=False)
+    logits = jax_logits(jm, variables, x)
     assert_labels_match(got.numpy(), logits)
     assert_labels_match(np.asarray(want), logits)
 
@@ -141,7 +149,7 @@ def test_fused_predict_at_a_width_without_tpu_kernels(setup):
         .astype(np.float32)
     got = tm.fused_predict(torch.from_numpy(x))
     assert got.dtype == torch.int32 and got.shape == (2, 56, 48)
-    logits = jm.apply(variables, jnp.asarray(x), training=False)
+    logits = jax_logits(jm, variables, x)
     assert_labels_match(got.numpy(), logits)
 
 

@@ -35,7 +35,8 @@ from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
 from semanticsegmentationactivelearning_tpu_torch.train import (bridge,
                                                                 steps)
 
-from _torch_parity import noised_variables, port_model, to_numpy_tree
+from _torch_parity import (fast_jit, noised_variables, port_model,
+                           to_numpy_tree)
 
 C = 5
 FINAL_SCALE = 25.0
@@ -170,34 +171,32 @@ def test_bridge_carries_every_score_kernel_weight(setup):
 
 def test_scoring_seams_match_jax(setup):
     """return_stage4, return_pre_logits, forward_from_stage1,
-    forward_stage4 and decode_from_stage4 against the JAX seams."""
+    forward_stage4 and decode_from_stage4 against the JAX seams (one
+    jitted reference: eager flax dispatch compiles every op alone)."""
     jm, variables, tm = setup
     x = _image((1, 16, 32, 3), 10)
-    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    tx = torch.from_numpy(x)
     tol = dict(rtol=1e-4, atol=1e-4)
     with torch.no_grad():
         f4, sw1 = tm(tx, return_stage4=True)
-        want_f4, want_sw1 = jm.apply(variables, jx, return_stage4=True)
-        np.testing.assert_allclose(f4.numpy(), np.asarray(want_f4), **tol)
-        np.testing.assert_array_equal(sw1.numpy(), np.asarray(want_sw1))
         pre = tm(tx, return_pre_logits=True)
-        np.testing.assert_allclose(
-            pre.numpy(), np.asarray(jm.apply(variables, jx,
-                                             return_pre_logits=True)), **tol)
         x1, _ = tm(tx, return_stage1=True)
-        np.testing.assert_allclose(
-            tm.forward_from_stage1(x1).numpy(), np.asarray(jm.apply(
-                variables, jnp.asarray(x1.numpy()),
-                method="forward_from_stage1")), **tol)
         y, sw2 = tm.forward_stage23(x1)
-        np.testing.assert_allclose(
-            tm.forward_stage4(y, sw2).numpy(), np.asarray(jm.apply(
-                variables, jnp.asarray(y.numpy()), jnp.asarray(sw2.numpy()),
-                method="forward_stage4")), **tol)
-        np.testing.assert_allclose(
-            tm.decode_from_stage4(f4, sw1).numpy(), np.asarray(jm.apply(
-                variables, want_f4, want_sw1, method="decode_from_stage4")),
-            **tol)
+        got = (f4, sw1, pre, tm.forward_from_stage1(x1),
+               tm.forward_stage4(y, sw2), tm.decode_from_stage4(f4, sw1))
+
+    def seams(v, x, x1, y, sw2):
+        f4, sw1 = jm.apply(v, x, return_stage4=True)
+        return (f4, sw1, jm.apply(v, x, return_pre_logits=True),
+                jm.apply(v, x1, method="forward_from_stage1"),
+                jm.apply(v, y, sw2, method="forward_stage4"),
+                jm.apply(v, f4, sw1, method="decode_from_stage4"))
+
+    args = (variables, x, x1.numpy(), y.numpy(), sw2.numpy())
+    want = fast_jit(seams, *args)(*args)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for g, w in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
     assert tm.supports_fused_scoring
 
 
@@ -220,18 +219,33 @@ ROUTES = [
 ]
 
 
+@pytest.fixture(scope="module")
+def route_scores(setup):
+    """Each route's image and the JAX package's plain score of it
+    (use_pallas=False, the reference its own tests hold each route's
+    Pallas chain to), in one jitted call: eager flax dispatch compiles
+    every op alone."""
+    jm, variables, _ = setup
+    images = [_image(shape, 11) for _, shape, _, _ in ROUTES]
+
+    def scores(v, *xs):
+        return [jm.fused_score(v, x, "entropy", use_pallas=False, **flags)
+                for x, (_, _, flags, _) in zip(xs, ROUTES)]
+
+    want = fast_jit(scores, variables, *images)(variables, *images)
+    return {r[0]: (x, w) for r, x, w in zip(ROUTES, images, want)}
+
+
 @pytest.mark.parametrize("route, shape, flags, wrapper", ROUTES,
                          ids=[r[0] for r in ROUTES])
-def test_fused_score_route_matches_jax(setup, monkeypatch, route, shape,
-                                       flags, wrapper):
-    # the JAX package's plain score (use_pallas=False, the reference its
-    # own tests hold each route's Pallas chain to): the kernel tests
-    # above hold each plain version to its Pallas kernel in interpret
-    # mode, test_torch_kernels.py the front, test_torch_mid_pack.py the mid
+def test_fused_score_route_matches_jax(setup, route_scores, monkeypatch,
+                                       route, shape, flags, wrapper):
+    # the kernel tests above hold each plain version to its Pallas kernel
+    # in interpret mode, test_torch_kernels.py the front,
+    # test_torch_mid_pack.py the mid
     jm, variables, tm = setup
-    x = _image(shape, 11)
-    want = jm.fused_score(variables, jnp.asarray(x), "entropy",
-                          use_pallas=False, **flags)
+    x, want = route_scores[route]
+    assert x.shape == shape
     mod, name = wrapper
     calls = []
     real = getattr(mod, name)
@@ -267,11 +281,24 @@ def test_short_inputs_take_the_decoder_on_mask1(setup, monkeypatch):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **CHAIN_TOL)
 
 
-@pytest.mark.parametrize("measure", ["margin", "confidence"])
-def test_fused_score_other_measures_match_jax(setup, measure):
-    jm, variables, tm = setup
+@pytest.fixture(scope="module")
+def measure_scores(setup):
+    """The JAX package's margin and confidence scores of one image, in
+    one jitted call."""
+    jm, variables, _ = setup
     x = _image((1, 16, 32, 3), 12)
-    want = jm.fused_score(variables, jnp.asarray(x), measure)
+    want = fast_jit(lambda v, x: {m: jm.fused_score(v, x, m) for m in
+                                  ("margin", "confidence")},
+                    variables, x)(variables, x)
+    return x, want
+
+
+@pytest.mark.parametrize("measure", ["margin", "confidence"])
+def test_fused_score_other_measures_match_jax(setup, measure_scores,
+                                              measure):
+    tm = setup[2]
+    x, want = measure_scores
+    want = want[measure]
     got = tm.fused_score(torch.from_numpy(x), measure)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **CHAIN_TOL)
 

@@ -11,8 +11,9 @@ resume for a third epoch from the log directory; ICNet from
 ``conf/icnet_cityscapes.json`` (its cascade loss and Momentum) for one
 step at batch 8 on 32x32 crops, its checkpoint then served by the
 ``inference`` CLI on the CPU; that the default ``--device cuda`` raises
-without a card and that what is not ported raises and names its ROADMAP
-item. Also the port's ``tb_events`` copy: a DT_STRING that is not UTF-8
+without a card, that a bf16 conf raises and names its ROADMAP item and
+that ``-m nir`` on RGB records raises the loader's missing-modality
+``ValueError``. Also the port's ``tb_events`` copy: a DT_STRING that is not UTF-8
 decodes with replacement characters. Measured: about 16 s on one
 process.
 """
@@ -232,14 +233,15 @@ def test_trains_icnet_and_serves_it(records, tmp_path, caplog):
     assert np.asarray(Image.open(out / pngs[0])).shape == HW
 
 
-@pytest.mark.parametrize("network,extra,item", [
-    ({"dtype": "bfloat16"}, [], "item 2"),
-    ({}, ["-m", "rgb", "nir"], "item 7")])
-def test_not_ported_raises(records, tmp_path, network, extra, item):
+@pytest.mark.parametrize("network,extra,error,match", [
+    ({"dtype": "bfloat16"}, [], NotImplementedError, "item 2"),
+    # -m stacks the records' extra modalities: RGB records have no 'nir'
+    ({}, ["-m", "rgb", "nir"], ValueError, "has no 'nir' modality")])
+def test_not_ported_raises(records, tmp_path, network, extra, error, match):
     dataset = "freiburg" if extra else "cityscapes"
     args = [dataset, "-d", str(records), "-l", str(tmp_path / "l"), "-p",
             _conf(str(tmp_path), 1, **network), "--device", "cpu", *extra]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         _run(args)
 
 
