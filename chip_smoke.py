@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch port's ENet and ICNet serving and
 pool-scoring paths, of ENet's and ICNet's training and active-learning
 loop (BALD and core-set acquisition too), of multi-modal input and the
-migration entries, and of its measurement rigs on one NVIDIA GPU.
+migration entries, of its multi-process runs and of its measurement rigs
+on one NVIDIA GPU (on two or more, phase 15 also runs NCCL a card a
+rank).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -47,8 +49,8 @@ Phases (any failure raises, so the exit code is not 0):
         least work and bound beside its plain version's time; the decoder
         route (the tail's stage-5 kernel on its score route) also under
         PRECISION_GATE with B5_0's, B5_1's and the Final's products
-        rounded, the deconv kernel (the tail's Final in one TF32 pass) at
-        each scale with the Final's, both on their per-tile sums less
+        rounded, the deconv kernel (the tail's Final in TF32, its weights
+        as hi + lo) at each scale with the Final's, both on their per-tile sums less
         each image's mean error (centred_max); the tail's split, its
         x4 gates and TFLOP/s as in phase 3.
      b. the pool: 6 uint8 batches through device_prefetch, /255 and
@@ -251,6 +253,29 @@ Phases (any failure raises, so the exit code is not 0):
         through #1, #3 and #5 with the original's labels; then a 4-plane
         one, which a 3-plane model refuses and which scores a batch
         through #7 as the original does.
+  15. multi-process runs (parallel.distributed), after phase 14 on phase
+     11's records; each rank a child process with torchrun's variables:
+     a. one train step of conf/enet_cityscapes_pretrain.json (dropout
+        on, its masks keyed by the global rows; TF32 off) at batch 8,
+        512x1024, as two ranks sharing the card over Gloo (4 rows
+        each), against one process's step on the same card, batch and
+        masks: the plain step in fp32 and in float64 and the step of a
+        world of one rank (the ranks' BN code), the loss and every
+        gradient (relative L2) against each, the BN statistics against
+        the world of one (DP_STATS_REF), under the conf's fp32
+        TRAIN_BOUNDS; the ranks' gradients bit-equal; each run's ms/step
+        and the gradient all-reduce's ms;
+     b. as two ranks sharing the card: the train CLI (the AL conf, one
+        epoch) and one AL round cut as 11c, the round also in one process
+        first: only rank 0 opens files for writing under the log
+        directory, the records, the picks equal one process's, each
+        rank's pool pass launches #1, #3 and #6 once a global batch, and
+        each run's al_timing;
+     c. the train CLI in a one-rank world, which the backend rule puts on
+        NCCL. With two cards or more, 15a and 15b again over NCCL a card
+        a rank, and make_predict_fn over two cards against one (each card
+        launching its front, mid and tail once a batch); otherwise one
+        line saying that this machine did not run that route.
 Prints the card, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}. Neither this process nor its child
 processes (the record writer and the CLI) import JAX or the JAX package;
@@ -2274,22 +2299,31 @@ def write_records(root: str, seed: int, h: int, w: int, **splits) -> None:
                    check=True, env=env)
 
 
-def start_child(module: str, *argv, after: str = ""):
+def start_child(module: str, *argv, after: str = "", before: str = "",
+                env=None):
     """Start ``python -m module argv`` in a child process that runs
-    ``after`` once the module is done, then checks that it imported no
-    JAX; its output goes to temporary files. Returns a handle for
-    :func:`wait_child`."""
-    script = ("import runpy, sys\n"
-              f"sys.argv[0] = {module.rsplit('.', 1)[-1]!r}\n"
+    ``before``, the module, then ``after`` once the module is done, then
+    checks that it imported no JAX; its output goes to temporary files;
+    ``env``: its environment (default this process's). Returns a handle
+    for :func:`wait_child`."""
+    script = ("import runpy, sys\n" + before
+              + f"sys.argv[0] = {module.rsplit('.', 1)[-1]!r}\n"
               "try:\n"
               f"    runpy.run_module({module!r}, run_name='__main__')\n"
               "except SystemExit as e:\n"
               "    if e.code:\n"
-              "        raise\n" + after + LEAK_CHECK)
+              "        raise\n" + after)
+    return start_script(module, script, *argv, env=env)
+
+
+def start_script(name: str, script: str, *argv, env=None):
+    """Start ``python -c script argv`` (then the JAX check) in a child
+    process, as :func:`start_child` does; ``name`` names it in errors."""
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen([sys.executable, "-c", script, *argv],
-                            stdout=out, stderr=err, text=True)
-    return module, proc, out, err, time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", script + LEAK_CHECK,
+                             *argv], stdout=out, stderr=err, text=True,
+                            env=env)
+    return name, proc, out, err, time.perf_counter()
 
 
 def wait_child(handle):
@@ -2322,9 +2356,9 @@ SERVE_COUNTS = (
     "icnet_head.fused_cff2_head8_predict.launches)\n")
 
 
-def run_child(module: str, *argv, after: str = ""):
+def run_child(module: str, *argv, after: str = "", before: str = ""):
     """:func:`start_child`, then :func:`wait_child`."""
-    return wait_child(start_child(module, *argv, after=after))
+    return wait_child(start_child(module, *argv, after=after, before=before))
 
 
 def run_train_cli(seed: int, conf_path: str = TRAIN_CONFS["pretrain"],
@@ -3688,8 +3722,13 @@ def check_importer(seed: int) -> dict:
                 0, 256, (N, SH, SW, planes), dtype=np.uint8)).to(DEV)
             image = image.float() / 255.0
             before = decoder.fused_decoder_entropy_score.launches
+            # the 4-plane route's encoder is the plain forward, whose cuDNN
+            # convolutions are not bit-repeatable by default (ROADMAP
+            # Queue 3): one ulp apart in a score at seed 0 (PR 18)
+            torch.backends.cudnn.deterministic = True
             got = imported.fused_score(image, "entropy")
             want = model.fused_score(image, "entropy")
+            torch.backends.cudnn.deterministic = False
             print(f"importer 14d: the imported {planes}-plane ENet-19 scores "
                   f"{got.tolist()} through #7 "
                   f"({decoder.fused_decoder_entropy_score.launches - before}"
@@ -3699,6 +3738,441 @@ def check_importer(seed: int) -> dict:
                                      "score as the original")
         del model, imported
     return launches
+
+
+# phase 15: multi-process runs (parallel.distributed): two ranks share the
+# card over Gloo (15a the train step, 15b the train and AL CLIs), a
+# one-rank NCCL world through the train CLI (15c); with two cards or more
+# also NCCL a card a rank and serving over two cards
+DP_WORLD = 2       # 15a, 15b: the ranks
+DP_TIMED = 3       # 15a: timed steps (and gradient all-reduces) after one
+DP_CONF = TRAIN_CONFS["pretrain"]   # 15a: the conf's dropout, loss, Adam
+# 15a gates the BN statistics against a world of one rank alone (its BN
+# code is the ranks'): at batch 8, 512x1024 an fp32 step takes ~1 pool
+# switch at a near-tied window (B1_0's and B2_0's 4 M windows each) other
+# than another fp32 or float64 step does, and each moves the decoder's
+# statistics by up to ~1e-5 of their magnitude. PR 18's calls read the
+# two ranks against the plain fp32 step at 6.7e-7 to 1.035e-5 (seeds 3,
+# 1, 0, 2) and against float64 at 2.4e-6 to 1.26e-5, and the plain fp32
+# step itself 1.3e-5 off float64 at seed 1 (PERF.md). The loss and the
+# gradients are gated against every reference.
+DP_STATS_REF = "world of one"
+# a rank of 15a (a child with torchrun's variables): its step's results
+STEP_RANK = ("import sys\n"
+             "import chip_smoke\n"
+             "chip_smoke.step_rank(int(sys.argv[1]), sys.argv[2])\n")
+# before a CLI rank's module: count the files it opens for writing under
+# the log directory after its "-l"; after it: print the count and the
+# score kernels' launches (front, mid, tail score)
+WRITE_COUNTER = (
+    "import builtins, os\n"
+    "_log = os.path.abspath(sys.argv[sys.argv.index('-l') + 1])\n"
+    "_writes, _open = [], builtins.open\n"
+    "def _counted(file, mode='r', *args, **kwargs):\n"
+    "    if isinstance(file, (str, bytes, os.PathLike)) \\\n"
+    "            and set(mode) & set('wax+') \\\n"
+    "            and os.path.abspath(os.fsdecode(file)).startswith(_log):\n"
+    "        _writes.append(file)\n"
+    "    return _open(file, mode, *args, **kwargs)\n"
+    "builtins.open = _counted\n")
+RANK_REPORT = (
+    "from semanticsegmentationactivelearning_tpu_torch.ops.kernels import "
+    "front, mid, tail\n"
+    "print('rank-report:', len(_writes), front.fused_front_stage1.launches, "
+    "mid.fused_mid_stage23.launches, "
+    "tail.fused_tail_entropy_score.launches)\n")
+
+
+def rank_env(rank: int, world: int, port: int, shared: bool) -> dict:
+    """torchrun's variables for ``rank`` of ``world`` on this host;
+    ``shared``: the ranks see the first card alone (Gloo, the backend
+    rule of ``parallel.distributed``), else every card (NCCL, a card a
+    rank)."""
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+               LOCAL_WORLD_SIZE=str(world))
+    if shared:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return env
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_step(seed: int, device, rank: int = 0, world: int = 1,
+            dtype=torch.float32) -> dict:
+    """15a's step: DP_CONF's state from the seeded weights on ``device``
+    in ``dtype``, one train step on rows ``rank``'s share of a batch of
+    TB at TH x TW (fixed_batch's draws; the dropout masks keyed by (seed,
+    0) and the global rows, ``train.steps.dropout_masks``), TF32 off.
+    Returns its loss, gradients and BN statistics; in float32 also the
+    ms a step over DP_TIMED more (after one) and the gradient
+    all-reduce's ms (no-op in one process), each on the host's clock
+    between synchronizes."""
+    from semanticsegmentationactivelearning_tpu_torch.parallel import (
+        distributed)
+    from semanticsegmentationactivelearning_tpu_torch.train import steps
+    set_precision("fp32")
+    state, step, _ = train_setup(DP_CONF, device, False, seed)
+    state.model.to(dtype)
+    n = TB // world
+    rows = np.arange(rank * n, (rank + 1) * n)
+    batch = fixed_batch(block_stack(TB, TH, TW, seed + 60)[rows], device,
+                        dtype)
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        return 1e3 * (time.perf_counter() - t0)
+
+    def one(i):
+        return step(state, batch, steps.dropout_masks((seed, i), rows,
+                                                      device))
+
+    out = {"loss": one(0)["loss"].item(),
+           "grads": {k: p.grad.detach().cpu().clone()
+                     for k, p in state.model.named_parameters()},
+           "stats": {k: v.detach().cpu().clone()
+                     for k, v in state.model.state_dict().items()
+                     if "running" in k}}
+    if dtype != torch.float32:
+        return out
+    ms = [timed(lambda: one(i + 1)) for i in range(DP_TIMED + 1)]
+    reduce_ms = [timed(lambda: distributed.all_reduce_grads(
+        state.model.parameters())) for _ in range(DP_TIMED + 1)]
+    out.update(ms=float(np.median(ms[1:])),
+               reduce_ms=float(np.median(reduce_ms[1:])))
+    set_precision("fp32")
+    return out
+
+
+def step_rank(seed: int, out: str) -> None:
+    """15a's rank, in a child process with torchrun's variables: joins
+    the world on its card (``utils.cli.device_from_args``, the backend
+    rule), runs :func:`dp_step` on its share and writes the result to
+    ``out/rank{R}.pt``."""
+    from semanticsegmentationactivelearning_tpu_torch.parallel import (
+        distributed)
+    from semanticsegmentationactivelearning_tpu_torch.utils import cli
+    device = cli.device_from_args("cuda")
+    distributed.initialize_distributed(device)
+    rank, world = distributed.process_index(), distributed.process_count()
+    res = dp_step(seed, device, rank, world)
+    res["backend"] = torch.distributed.get_backend()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def check_dp_step(seed: int, shared: bool = True, phase: str = "15a"
+                  ) -> dict:
+    """Phase 15a: :func:`dp_step` in DP_WORLD ranks (sharing the card over
+    Gloo, or NCCL a card a rank) against one process on the same card,
+    batch and masks: the plain step in fp32 and in float64 (the loss and
+    each tensor's gradient, relative L2, against both) and the step of a
+    world of one rank (the same BN code as the ranks'; the loss, the
+    gradients and the BN statistics), under DP_CONF's fp32
+    TRAIN_BOUNDS; the ranks' gradients bit-equal. The statistics against
+    the plain steps are printed, not gated (DP_STATS_REF). Returns the
+    times."""
+    def start(world, tmp):
+        port = free_port()
+        return [start_script(f"{phase} rank {r} of {world}", STEP_RANK,
+                             str(seed), tmp,
+                             env=rank_env(r, world, port, shared))
+                for r in range(world)]
+
+    def results(handles, tmp):
+        for h in handles:
+            wait_child(h)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(len(handles))]
+
+    # the ranks alone (their times are read), then the world of one beside
+    # this process's float64 step, then its fp32 step alone
+    with tempfile.TemporaryDirectory() as tmp2, \
+            tempfile.TemporaryDirectory() as tmp1:
+        ranks = results(start(DP_WORLD, tmp2), tmp2)
+        handles = start(1, tmp1)
+        torch.cuda.empty_cache()
+        fp64 = dp_step(seed, DEV, dtype=torch.float64)
+        one_rank, = results(handles, tmp1)
+    refs = {"world of one": one_rank, "fp32": dp_step(seed, DEV),
+            "fp64": fp64}
+    ref = refs["fp32"]
+    bounds = TRAIN_BOUNDS["pretrain"]["fp32"]
+
+    def errors(got, want):
+        return {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                "grad": max(((got["grads"][k].double() - g.double()).norm()
+                             / g.double().norm()).item()
+                            for k, g in want["grads"].items()),
+                "stats": max(((got["stats"][k].double() - v.double()).abs()
+                              .max() / v.double().abs().max()).item()
+                             for k, v in want["stats"].items())}
+
+    got = ranks[0]
+    err = {name: errors(got, r) for name, r in refs.items()}
+    own = errors(ref, refs["fp64"])
+    same = all(torch.equal(g, ranks[1]["grads"][k])
+               for k, g in got["grads"].items())
+    backend = got["backend"]
+    print(f"dp {phase} ({DP_WORLD} ranks, {backend}, "
+          f"{'sharing one card' if shared else 'a card a rank'}; ENet-"
+          f"{CLASSES} {DP_CONF}, batch {TB} at {TH}x{TW}, {TB // DP_WORLD} "
+          f"rows a rank, dropout on, TF32 off): loss {ref['loss']:.6f}; "
+          + "; ".join(
+              f"against one process's {name} step on the same card: loss "
+              f"rel err {e['loss']:.3e}, gradients largest rel L2 "
+              f"{e['grad']:.3e}, BN statistics {e['stats']:.3e}"
+              f"{'' if name == DP_STATS_REF else ' (not gated)'}"
+              for name, e in err.items())
+          + f" (bounds {bounds}); one process's fp32 against its float64: "
+          f"{own['loss']:.3e}, {own['grad']:.3e}, {own['stats']:.3e}; the "
+          f"ranks' gradients bit-equal {same}; ms/step one process "
+          f"{ref['ms']:.1f}, ranks "
+          f"{[round(r['ms'], 1) for r in ranks]}, the gradient all-reduce "
+          f"{[round(r['reduce_ms'], 2) for r in ranks]} ms (median of "
+          f"{DP_TIMED} after 1)")
+    if not same or any(e[k] > bounds[k] for name, e in err.items()
+                       for k in bounds
+                       if k != "stats" or name == DP_STATS_REF):
+        raise AssertionError(f"the {DP_WORLD}-rank train step disagrees "
+                             f"with one process's ({backend})")
+    return {"ms": ref["ms"], "rank_ms": [r["ms"] for r in ranks],
+            "reduce_ms": [r["reduce_ms"] for r in ranks],
+            "backend": backend}
+
+
+def start_ranks(module: str, world: int, shared: bool, argv) -> list:
+    """Start ``module`` with ``argv`` as ``world`` ranks (WRITE_COUNTER
+    before, RANK_REPORT after); :func:`wait_ranks` waits for them."""
+    port = free_port()
+    return [start_child(module, *argv, before=WRITE_COUNTER,
+                        after=RANK_REPORT, env=rank_env(r, world, port, shared))
+            for r in range(world)]
+
+
+def wait_ranks(handles) -> list:
+    """Each rank's (stdout, files written under the log directory, [front,
+    mid, tail score launches]); fails on a rank's failure."""
+    out = []
+    for h in handles:
+        res, _ = wait_child(h)
+        report = [int(v) for v in [
+            ln for ln in res.stdout.splitlines()
+            if ln.startswith("rank-report:")][-1].split()[1:]]
+        out.append((res.stdout, report[0], report[1:]))
+    return out
+
+
+def run_dp_clis(seed: int, rec: str, shared: bool = True,
+                phase: str = "15b", during=None) -> dict:
+    """Phase 15b: on phase 11's records, the train CLI (AL_CONF, one
+    epoch) and one AL round (AL_CONF cut as 11c: 8 labelled, 8 picked,
+    4 validation records, lr 1e-7) as DP_WORLD ranks; the AL round also
+    in one process first. Rank 0 alone writes, the backend is the rule's
+    (Gloo sharing the card, NCCL a card a rank), the records are as
+    expected, the ranks' picks equal one process's, each rank's pool
+    pass launches #1, #3 and #6 once a global batch. ``during()`` starts
+    what runs beside the train CLI's ranks and returns what waits for it.
+    Returns the ranks' launches by kernel and each run's al_timing."""
+    port_pkg = "semanticsegmentationactivelearning_tpu_torch"
+    backend = "gloo" if shared else "nccl"
+    with open(AL_CONF) as fp:
+        conf = json.load(fp)
+    conf["epochs"] = 1
+    conf["hyperparams"]["learning_rate"] = 1e-7
+    conf["active_learning"].update({
+        "iterations": 1, "epochs/warm_up": 0, "num_validation": 4,
+        "num_initially_labelled": 8, "selection_size": 8})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "conf.json")
+        with open(path, "w") as fp:
+            json.dump(conf, fp)
+        args = ("cityscapes", "-d", rec, "-p", path, "--seed", str(seed))
+
+        def checked(ranks, what):
+            for r, (stdout, writes, _) in enumerate(ranks):
+                if f"backend {backend}" not in stdout \
+                        or f"Data-parallel over {DP_WORLD} ranks" \
+                        not in stdout or (writes > 0) != (r == 0):
+                    raise AssertionError(
+                        f"{what}, rank {r}: {writes} files written, or not "
+                        f"data-parallel over {backend}:\n{stdout[-3000:]}")
+            return [w for _, w, _ in ranks]
+
+        t0 = time.perf_counter()
+        log = os.path.join(tmp, "train")
+        handles = start_ranks(f"{port_pkg}.train", DP_WORLD, shared,
+                              args + ("-l", log))
+        finish = during() if during is not None else None
+        writes = checked(wait_ranks(handles), "train CLI")
+        if finish is not None:
+            finish()
+        with open(os.path.join(log, "metrics.jsonl")) as fp:
+            splits = [json.loads(ln)["split"] for ln in fp]
+        steps = -(-(AL_POOL + 4) // SN)
+        print(f"dp {phase} train CLI ({DP_WORLD} ranks, {backend}): "
+              f"{time.perf_counter() - t0:.1f} s; files written by rank "
+              f"{writes}; records {splits}")
+        if splits != ["train_iter"] * steps + ["train", "val", "final_val"] \
+                or not os.path.exists(os.path.join(log, "model-1.ckpt")):
+            raise AssertionError("the train CLI's ranks wrote other records "
+                                 "or no checkpoint")
+
+        def al_round(log, world):
+            if world == 1:
+                res = run_child(f"{port_pkg}.active_learning", *args, "-l",
+                                log, before=WRITE_COUNTER,
+                                after=RANK_REPORT)[0]
+                ranks = [(res.stdout, 0, [int(v) for v in [
+                    ln for ln in res.stdout.splitlines()
+                    if ln.startswith("rank-report:")][-1].split()[2:]])]
+            else:
+                ranks = wait_ranks(start_ranks(
+                    f"{port_pkg}.active_learning", world, shared,
+                    args + ("-l", log)))
+                checked(ranks, "AL CLI")
+            with open(os.path.join(log, "state.json")) as fp:
+                state = json.load(fp)
+            with open(os.path.join(log, "metrics.jsonl")) as fp:
+                records = [json.loads(ln) for ln in fp]
+            return ranks, state, records
+
+        one = al_round(os.path.join(tmp, "al_one"), 1)
+        t0 = time.perf_counter()
+        dp = al_round(os.path.join(tmp, "al_dp"), DP_WORLD)
+        secs = time.perf_counter() - t0
+    batches = -(-AL_POOL // SN)
+    want = [5 * batches, 21 * batches, 2 * batches]
+    picks = [s["dataset"]["train"]["labelled"] for _, s, _ in (one, dp)]
+    timing = [[r for r in records if r["split"] == "al_timing"]
+              for _, _, records in (one, dp)]
+    splits = [sorted(r["split"] for r in records)
+              for _, _, records in (one, dp)]
+    launches = [r[2] for r in dp[0]]
+    print(f"dp {phase} AL round ({DP_WORLD} ranks, {backend}): {secs:.1f} "
+          f"s; picks {sorted(picks[1][8:])}, one process's "
+          f"{sorted(picks[0][8:])}; launches front/mid/tail score by rank "
+          f"{launches} (one process {one[0][0][2]}; expected {want} each); "
+          f"al_timing one process "
+          + ", ".join(f"{k} {timing[0][0][k]}" for k in
+                      ("train_s", "score_select_s", "round_s"))
+          + f"; {DP_WORLD} ranks "
+          + ", ".join(f"{k} {timing[1][0][k]}" for k in
+                      ("train_s", "score_select_s", "round_s")))
+    if picks[0] != picks[1] or len(picks[1]) != 16 \
+            or splits[0] != splits[1] \
+            or any(r != want for r in launches + [one[0][0][2]]):
+        raise AssertionError("the AL round's ranks picked otherwise than one "
+                             "process, wrote other records or did not rank "
+                             "the pool through #1, #3, #6")
+    return {"launches": dict(zip(("front_score", "mid_score", "tail_score"),
+                                 np.sum(launches, 0).tolist())),
+            "timing": timing}
+
+
+def one_rank_nccl(seed: int, rec: str):
+    """Phase 15c: start the train CLI (AL_CONF, one epoch) in a world of
+    one rank, which the backend rule puts on NCCL; returns what waits for
+    it and checks it."""
+    port_pkg = "semanticsegmentationactivelearning_tpu_torch"
+    with open(AL_CONF) as fp:
+        conf = json.load(fp)
+    conf["epochs"] = 1
+    tmp = tempfile.TemporaryDirectory()
+    path, log = os.path.join(tmp.name, "conf.json"), \
+        os.path.join(tmp.name, "log")
+    with open(path, "w") as fp:
+        json.dump(conf, fp)
+    t0 = time.perf_counter()
+    handles = start_ranks(f"{port_pkg}.train", 1, False,
+                          ("cityscapes", "-d", rec, "-p", path, "--seed",
+                           str(seed), "-l", log))
+
+    def finish():
+        with tmp:
+            (stdout, writes, _), = wait_ranks(handles)
+            with open(os.path.join(log, "metrics.jsonl")) as fp:
+                splits = [json.loads(ln)["split"] for ln in fp]
+        joined = [ln.split(": ", 1)[-1] for ln in stdout.splitlines()
+                  if "backend" in ln]
+        print(f"dp 15c train CLI (one rank, beside 15b's train CLI): "
+              f"{time.perf_counter() - t0:.1f} s; {joined}; {writes} files "
+              f"written; records {splits}")
+        if "backend nccl" not in stdout \
+                or "A world of one rank" not in stdout or not writes \
+                or splits[-1] != "final_val":
+            raise AssertionError("the one-rank NCCL world did not train")
+
+    return finish
+
+
+def multi_process(seed: int, rec: str) -> dict:
+    """Phase 15 on phase 11's records ``rec``: 15a and 15b with the ranks
+    sharing the card over Gloo, 15c; with two cards or more, 15a and 15b
+    again over NCCL a card a rank and serving over two cards, else one
+    line saying that this machine did not run them. Returns 15a's times,
+    15b's launches (summed over the ranks) and al_timing."""
+    t0 = time.perf_counter()
+    out = {"step": check_dp_step(seed)}
+    torch.cuda.empty_cache()
+    out.update(run_dp_clis(seed, rec,
+                           during=lambda: one_rank_nccl(seed, rec)))
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        check_dp_step(seed, shared=False, phase="15c")
+        nccl = run_dp_clis(seed, rec, shared=False, phase="15c")
+        for k, v in nccl["launches"].items():
+            out["launches"][k] += v
+        serve_two_cards(seed)
+    else:
+        print(f"dp 15c: {cards} card on this machine: the two-card NCCL "
+              f"route (15a and 15b a card a rank, serving over two cards) "
+              f"was not run")
+    print(f"dp: phase 15 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def serve_two_cards(seed: int) -> None:
+    """Phase 15c on two cards or more: make_predict_fn over cuda:0 and
+    cuda:1 (ENet-19, batch 2 at 1024x2048, a row a card) against cuda:0
+    alone: the maps equal but on at most 1e-4 of the pixels, and each
+    card's front, mid and tail predict launched once a batch."""
+    from semanticsegmentationactivelearning_tpu_torch.inference import (
+        make_predict_fn)
+    from semanticsegmentationactivelearning_tpu_torch.models import get_model
+    from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
+        front, mid, tail)
+    model = get_model("ENet", CLASSES)
+    model.load_state_dict(seeded_state_dict(model, seed))
+    lut = torch.arange(256, dtype=torch.uint8)
+    stack = torch.from_numpy(np.random.default_rng(seed + 70).integers(
+        0, 256, (N, H, W, 3), dtype=np.uint8)).to("cuda:0")
+    cards = [torch.device("cuda", i) for i in range(2)]
+    want = make_predict_fn(model, lut, H, W, 3, cards[:1])(stack)
+    wrappers = (front.fused_front_stage1, mid.fused_mid_stage23,
+                tail.fused_tail_predict)
+    for fn in wrappers:
+        fn.launches = 0
+    got = make_predict_fn(copy.deepcopy(model), lut, H, W, 3, cards)(stack)
+    torch.cuda.synchronize()
+    differ = (got != want).float().mean().item()
+    launches = [fn.launches for fn in wrappers]
+    print(f"dp 15c inference over 2 cards (batch {N}, {H}x{W}): maps "
+          f"differ from one card's at {differ:.2e} of the pixels; launches "
+          f"front/mid/tail {launches}")
+    if differ > 1e-4 or launches != [front.LAUNCHES_PER_CALL * 2,
+                                     mid.LAUNCHES_PER_CALL * 2,
+                                     tail.LAUNCHES_PER_CALL * 2]:
+        raise AssertionError("serving over two cards disagrees with one")
 
 
 def main(argv=None) -> int:
@@ -3869,19 +4343,26 @@ def main(argv=None) -> int:
             launches[k] += v
         print(f"icnet train: phase 13 in {time.perf_counter() - t13:.1f} s")
 
-    # 14. Freiburg multi-modal and the migration entries
-    torch.cuda.empty_cache()
-    t14 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        fb_rec = freiburg_etl(args.seed, tmp)
-        fb = check_freiburg(args.seed)
+        # 14. Freiburg multi-modal and the migration entries
         torch.cuda.empty_cache()
-        fb_launches_al, fb_timing = run_freiburg_clis(args.seed, fb_rec, tmp)
-        launches["decoder_score"] += fb_launches_al
-    torch.cuda.empty_cache()
-    for k, v in check_importer(args.seed).items():
-        launches[k] += v
-    print(f"freiburg: phase 14 in {time.perf_counter() - t14:.1f} s")
+        t14 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as fb_tmp:
+            fb_rec = freiburg_etl(args.seed, fb_tmp)
+            fb = check_freiburg(args.seed)
+            torch.cuda.empty_cache()
+            fb_launches_al, fb_timing = run_freiburg_clis(args.seed, fb_rec,
+                                                          fb_tmp)
+            launches["decoder_score"] += fb_launches_al
+        torch.cuda.empty_cache()
+        for k, v in check_importer(args.seed).items():
+            launches[k] += v
+        print(f"freiburg: phase 14 in {time.perf_counter() - t14:.1f} s")
+
+        # 15. multi-process runs, on phase 11's records
+        torch.cuda.empty_cache()
+        dp = multi_process(args.seed, rec)
+        for k, v in dp["launches"].items():
+            launches[k] += v
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
     if leaked:
@@ -3954,6 +4435,18 @@ def main(argv=None) -> int:
                                                  "round_s"))
           + f" (batch {FN}, {FH}x{FW}, ENet-{FB_CLASSES}, {FB_PLANES} "
           f"planes, {FB_CONF}; {smi})")
+    st = dp["step"]
+    print(f"dp: train step (15a, ENet-{CLASSES} {DP_CONF}, batch {TB} at "
+          f"{TH}x{TW}, TF32 off) one process {st['ms']:.1f} ms/step, "
+          f"{DP_WORLD} ranks sharing the card ({st['backend']}) "
+          f"{[round(v, 1) for v in st['rank_ms']]} ms/step, the gradient "
+          f"all-reduce {[round(v, 2) for v in st['reduce_ms']]} ms; AL round "
+          f"(15b) one process " + ", ".join(
+              f"{k} {dp['timing'][0][0][k]}" for k in
+              ("train_s", "score_select_s", "round_s"))
+          + f", {DP_WORLD} ranks " + ", ".join(
+              f"{k} {dp['timing'][1][0][k]}" for k in
+              ("train_s", "score_select_s", "round_s")) + f" ({smi})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

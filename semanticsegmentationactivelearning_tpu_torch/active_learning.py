@@ -16,8 +16,8 @@ CLI's, so a JAX AL log directory resumes here:
                    "val":   {"filenames"},
                    "test":  {"filenames"} } }
 
-It runs on the first CUDA device (``--device cuda``, the default,
-raises without one) or, with ``--device cpu``, on the CPU. Each round:
+It runs on a CUDA device (``--device cuda``, the default, raises
+without one) or, with ``--device cpu``, on the CPU. Each round:
 early-stopped training on the labelled set plus a pseudo-labelled
 sample of the pool (warm-up grace, then ``epochs`` of patience; the
 round's best checkpoint is committed on a validation mIoU gain, or
@@ -63,7 +63,21 @@ forward. Not ported (it raises before any training and names its
 ROADMAP.md item): bf16 models (item 2).
 ``score_group`` and ``train_group`` are read and ignored: grouped
 dispatch is not ported, and per-example crops make the score the same
-either way. With several GPUs it runs on the first (Queue 1 item 9).
+either way.
+
+Data-parallel over several processes: ``torchrun --nproc_per_node N -m
+semanticsegmentationactivelearning_tpu_torch.active_learning ...`` (a
+card a rank; ``parallel.distributed``). Every rank runs the host loop
+identically, with the same seeds, as the JAX CLI's processes do: each
+decodes and steps on its rows of every global batch (the conf's
+``batch_size``, divisible by the world size), the validation mIoU is
+the global batch's, the pool pass scores (or embeds) each rank's rows
+through the kernels and gathers them in pool order, so every rank picks
+the same examples. Rank 0 alone writes ``state.json``, the metrics, the
+checkpoints and the images; after a barrier it broadcasts the round's
+best checkpoint path, from which every rank restores. The pool pass is
+data-parallel only (the JAX CLI's spatially sharded scoring is ROADMAP
+Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -84,13 +98,15 @@ from .models import conf_model_kwargs, get_model, model_class
 from .ops import acquisition
 from .ops import metrics as xmetrics
 from .ops import selection
+from .parallel import distributed
 from .train import checkpoint as ckpt
 from .train import config as conf
 from .train import optim
 from .train.__main__ import _not_ported, _on_device, run_eval_epoch
-from .train.steps import (create_train_state, make_embed_step,
-                          make_eval_step, make_mc_score_step,
-                          make_score_step, make_train_step)
+from .train.steps import (create_train_state, dropout_masks,
+                          make_embed_step, make_eval_step,
+                          make_mc_score_step, make_score_step,
+                          make_train_step)
 from .utils import cli, images
 
 logger = logging.getLogger(__name__)
@@ -244,22 +260,33 @@ def pool_outputs(step, plan, pass_key, crop_hw, channels: int, device,
     ``plan`` (:func:`rank_plan`) through ``device_prefetch``,
     ``pipeline.score_batch_indexed`` (the undistorted crop, drawn per
     example from ``pass_key`` and its index) and ``step({"image",
-    "index"})``, ``index`` being the records' pool indices. Returns
-    ``[(outputs on the device, index, valid)]`` a batch."""
+    "index"})``, ``index`` being the records' pool indices; under several
+    ranks each takes its rows of every global batch (the plan's loaders
+    hold a rank's share). Returns the valid rows' outputs ``[rows, ...]``
+    on the device and their pool indices ``[rows]`` (on the device too),
+    every rank's gathered in pool order."""
+    world = distributed.process_count()
+
     def stream():
         for idx, ld in plan:
-            yield from ld.batches(idx)
+            yield from distributed.batches(ld, idx, ld.batch_size * world)
 
-    total = sum(ld.num_batches(len(idx)) for idx, ld in plan)
-    pending = []
+    total = sum(ld.num_batches(-(-len(idx) // world)) for idx, ld in plan)
+    outs, rows = [], []
     for b in cli.progress(device_prefetch(stream(), device), desc,
                           total=total):
         raw = pipeline.score_batch_indexed(
             b["stack"], b["heights"], b["widths"], pass_key, b["index"],
             crop_hw, channels)
-        pending.append((step({"image": raw, "index": b["index"]}),
-                        b["index"], b["valid"]))
-    return pending
+        out = step({"image": raw, "index": b["index"]})
+        keep = torch.as_tensor(np.flatnonzero(b["valid"]), device=out.device)
+        outs.append(out[keep])
+        rows.append(torch.as_tensor(b["index"][b["valid"]],
+                                    dtype=torch.int64, device=out.device))
+    if not outs:
+        return None, None
+    return (distributed.all_gather_rows(torch.cat(outs)),
+            distributed.all_gather_rows(torch.cat(rows)))
 
 
 def score_pool(score_step, plan, num_examples: int, pass_key, crop_hw,
@@ -268,9 +295,10 @@ def score_pool(score_step, plan, num_examples: int, pass_key, crop_hw,
     ``[num_examples]`` confidences; they stay on the device until the
     pass ends."""
     confidence = np.zeros(num_examples, dtype=np.float32)
-    for scores, idx, val in pool_outputs(score_step, plan, pass_key,
-                                         crop_hw, channels, device, desc):
-        confidence[idx[val]] = scores.cpu().numpy()[val]
+    scores, idx = pool_outputs(score_step, plan, pass_key, crop_hw,
+                               channels, device, desc)
+    if scores is not None:
+        confidence[idx.cpu().numpy()] = scores.cpu().numpy()
     return confidence
 
 
@@ -279,15 +307,13 @@ def embed_pool(embed_step, plan, num_examples: int, pass_key, crop_hw,
                ) -> torch.Tensor:
     """The pool pass's embeddings (:func:`pool_outputs`) as a float32
     ``[num_examples, D]`` tensor on ``device``, assembled there."""
-    emb = None
-    for out, idx, val in pool_outputs(embed_step, plan, pass_key, crop_hw,
-                                      channels, device, desc):
-        if emb is None:
-            emb = torch.zeros(num_examples, out.shape[1],
-                              dtype=torch.float32, device=out.device)
-        rows = torch.as_tensor(idx[val], device=out.device)
-        emb[rows] = out[torch.as_tensor(np.flatnonzero(val),
-                                        device=out.device)].float()
+    out, idx = pool_outputs(embed_step, plan, pass_key, crop_hw, channels,
+                            device, desc)
+    if out is None:
+        return None
+    emb = torch.zeros(num_examples, out.shape[1], dtype=torch.float32,
+                      device=out.device)
+    emb[idx] = out.float()
     return emb
 
 
@@ -355,16 +381,30 @@ def main(args) -> int:
     alparams = params["active_learning"]
     _check_ported(args, params)
     device = cli.device_from_args(args.device)
+    batch_size = params["batch_size"]
+    world = distributed.env_world_size()
+    distributed.check_batch_divisible(batch_size, world)
+    # every rank runs the host loop identically (root
+    # active_learning.py:168-177); rank 0 alone writes
+    if distributed.launched():
+        distributed.initialize_distributed(device)
+    is_main = distributed.is_main()
+    # this rank's rows of each global batch, from row `first` on
+    local_bs = batch_size // world
+    first = distributed.process_index() * local_bs
 
     state_filename = os.path.join(args.log_dir, "state.json")
     os.makedirs(args.log_dir, exist_ok=True)
-    if not os.path.exists(os.path.join(args.log_dir, "config.json")):
+    if is_main and not os.path.exists(os.path.join(args.log_dir,
+                                                    "config.json")):
         conf.dump_params(params, args.log_dir)
 
     dataset = cli.make_dataset(args)
     num_classes = dataset.num_classes
+    # every rank computes the same state from the seed; rank 0 persists it
     state = init_or_load_state(state_filename, args, alparams,
-                               np.random.default_rng(args.seed))
+                               np.random.default_rng(args.seed),
+                               write=is_main)
     # dtype=object: poll_human_annotations may assign longer paths
     train_examples = np.array(state["dataset"]["train"]["filenames"],
                               dtype=object)
@@ -381,34 +421,36 @@ def main(args) -> int:
 
     in_hw = (params["network"]["input"]["height"],
              params["network"]["input"]["width"])
-    batch_size = params["batch_size"]
     train_sampler = sampler.IndexSampler(
         train_examples, rng=np.random.default_rng(args.seed + 1))
     # extra modalities stack after the RGB planes in every loader
     # (active_learning.py:231-290)
     modalities = cli.extra_modalities(args)
-    train_loader = loader.RecordLoader(train_examples, batch_size,
+    train_loader = loader.RecordLoader(train_examples, local_bs,
                                        min_hw=in_hw, modalities=modalities)
     in_channels = train_loader.channels
     if modalities:
         logger.info("Stacking modalities %s -> %d input channels",
                     list(modalities), in_channels)
-    plan = rank_plan(train_loader, batch_size, in_hw,
+    plan = rank_plan(train_loader, local_bs, in_hw,
                      alparams.get("size_buckets", "auto"))
-    val_loader = loader.RecordLoader(val_examples, batch_size,
+    val_loader = loader.RecordLoader(val_examples, local_bs,
                                      min_hw=in_hw, modalities=modalities) \
         if len(val_examples) else None
-    test_loader = loader.RecordLoader(test_examples, batch_size,
+    test_loader = loader.RecordLoader(test_examples, local_bs,
                                       min_hw=in_hw, modalities=modalities) \
         if len(test_examples) else None
     if device.type == "cuda":
         logger.info("Running on %s", torch.cuda.get_device_name(device))
-        if torch.cuda.device_count() > 1:
-            logger.info("Running on one of %d GPUs; multi-GPU runs are not "
-                        "ported yet (ROADMAP.md Queue 1 item 9)",
-                        torch.cuda.device_count())
     else:
         logger.info("Running on the CPU, as --device cpu asks")
+    if world > 1:
+        logger.info("Data-parallel over %d ranks: %d of each global batch "
+                    "of %d a rank; pool scoring is data-parallel only "
+                    "(spatial sharding: ROADMAP.md Queue 1 item 10)", world,
+                    local_bs, batch_size)
+    elif distributed.launched():
+        logger.info("A world of one rank: the collectives run on it")
     for knob, value in (("score_group", alparams.get("score_group")),
                         ("train_group", params.get("train_group"))):
         if value is not None and int(value) > 1:
@@ -472,7 +514,7 @@ def main(args) -> int:
     ckpt_manager = ckpt.CheckpointManager(args.log_dir, async_io=True)
     writer = cli.MetricsWriter(args.log_dir,
                                tensorboard=getattr(args, "tensorboard",
-                                                   False))
+                                                   False), enabled=is_main)
     aug_rng = np.random.default_rng(args.seed + 2)
     sel_rng = np.random.default_rng(args.seed + 3)
     img_cfg = params.get("image_summaries") or {}
@@ -486,8 +528,12 @@ def main(args) -> int:
             torch.cuda.synchronize(device)
 
     def dump_pseudo_snapshot(epoch):
-        """Pseudo-label PNGs of a batch (active_learning.py:367-388)."""
+        """Pseudo-label PNGs of a batch (active_learning.py:367-388), on
+        rank 0; every rank draws the batch, so that the sampler stays in
+        step."""
         order = train_sampler.epoch_order()[:batch_size]
+        if not is_main:
+            return
         b = next(iter(device_prefetch(train_loader.batches(order), device)))
         heights, widths, _ = _on_device(b, device)
         raw, _img, _lbl, _msk = pipeline.augment_batch(
@@ -511,20 +557,24 @@ def main(args) -> int:
         iter_buf = cli.StepScalarBuffer(("loss", "cost", "learning_rate"))
         step0 = int(tstate.step)
         batches = cli.progress(
-            device_prefetch(train_loader.batches(order), device),
-            epoch_desc, total=train_loader.num_batches(len(order)))
+            device_prefetch(distributed.batches(train_loader, order,
+                                                batch_size), device),
+            epoch_desc, total=-(-len(order) // batch_size))
         for b in batches:
             seed = int(aug_rng.integers(0, 2 ** 31 - 1))
             gen = torch.Generator(device).manual_seed(seed)
             heights, widths, valid = _on_device(b, device)
             raw, image, label, mask = pipeline.augment_batch(
                 b["stack"], heights, widths, gen, crop_hw=in_hw,
-                channels=in_channels)
+                channels=in_channels, span=(first, batch_size))
+            masks = dropout_masks(
+                (args.seed + 2, state["iteration"], int(tstate.step)),
+                first + np.arange(local_bs), device)
             m = train_step(tstate, {
                 "image": image, "image_raw": raw, "label": label,
                 "mask": mask, "valid": valid,
                 "labelled": torch.as_tensor(labelled_flags[b["index"]],
-                                            device=device)}, gen)
+                                            device=device)}, masks)
             iter_buf.append(m)
             acc.update(m["confusion"])
         scalars = iter_buf.flush()
@@ -569,23 +619,31 @@ def main(args) -> int:
             if (pseudo_cadence > 0 and state["iteration"] > 0
                     and epoch % pseudo_cadence == 0):
                 dump_pseudo_snapshot(epoch)
-            ckpt_manager.cache(tstate)
+            if is_main:
+                ckpt_manager.cache(tstate)
             improved = val_miou > best_mean_iou
             if improved or val_loader is None:
                 # without a validation set every epoch commits, so the
-                # restore after the round keeps its training
+                # restore after the round keeps its training; the
+                # validation mIoU is the global batch's, so every rank
+                # takes this branch in the same epochs
                 best_mean_iou = max(best_mean_iou, val_miou)
-                committed = ckpt_manager.commit(
-                    os.path.join(log_subdir, "model"))
-                if committed != "":
-                    best_ckpt_path = committed
+                if is_main:
+                    committed = ckpt_manager.commit(
+                        os.path.join(log_subdir, "model"))
+                    if committed != "":
+                        best_ckpt_path = committed
             if improved:
                 no_improvement = 0
             else:
                 no_improvement += 1
                 if no_improvement >= params["epochs"] and grace < 0:
                     break
-        return best_ckpt_path
+        # rank 0's write is done; its committed path for every rank's
+        # restore (root active_learning.py:783-787)
+        ckpt_manager.wait()
+        distributed.sync_processes("al-round-committed")
+        return distributed.broadcast_str(best_ckpt_path) or None
 
     def test_loop():
         """Test metrics keyed by the labelled set's size
@@ -635,9 +693,10 @@ def main(args) -> int:
                 sync()
                 phase_s["train"] = time.time() - t0
             except KeyboardInterrupt:
-                if ckpt_manager.latest_checkpoint != "":
-                    state["checkpoint"] = ckpt_manager.latest_checkpoint
-                _write_state_json(state_filename, state)
+                if is_main:
+                    if ckpt_manager.latest_checkpoint != "":
+                        state["checkpoint"] = ckpt_manager.latest_checkpoint
+                    _write_state_json(state_filename, state)
                 raise
 
             # reload the round's best checkpoint (active_learning.py:
@@ -705,8 +764,13 @@ def main(args) -> int:
             to_annotate = no_label_indices[np.isin(no_label_indices,
                                                    low_conf)]
             if len(to_annotate) > 0:
-                train_examples = poll_human_annotations(
-                    to_annotate, train_examples, logger)
+                # rank 0 asks; every rank takes its answer
+                if is_main:
+                    train_examples = poll_human_annotations(
+                        to_annotate, train_examples, logger)
+                train_examples = np.array(json.loads(
+                    distributed.broadcast_str(json.dumps(
+                        train_examples.tolist()))), dtype=object)
             no_label_indices = no_label_indices[np.isin(
                 no_label_indices, low_conf, invert=True)]
             if len(low_conf):
@@ -732,9 +796,11 @@ def main(args) -> int:
                 **{f"{k}_s": round(v, 3) for k, v in phase_s.items()}})
             state["iteration"] += 1
             state["checkpoint"] = checkpoint_path
-            _write_state_json(state_filename, state)
+            if is_main:
+                _write_state_json(state_filename, state)
     ckpt_manager.close()
     writer.close()
+    distributed.shutdown()
     return 0
 
 

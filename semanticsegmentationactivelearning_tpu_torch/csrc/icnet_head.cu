@@ -330,7 +330,8 @@ enum { OUT_SCORE, OUT_PREDICT, OUT_FUSED8 };
 
 // kOut: the head's partials (score) or labels (predict), or fused8 for
 // the tile's positions (the GEMM alone); out is partials or fused8.
-// PASSES: CFF2's products in 1 (TF32) or 3 (3xTF32) passes. cls_ws: the
+// PASSES: CFF2's products in 1 (TF32), 2 (TF32, the weights as hi + lo)
+// or 3 (3xTF32) passes. cls_ws: the
 // classifier record's stride (its n is C padded to 8s).
 template <int kOut, int PASSES>
 __global__ void __launch_bounds__(CFF2_THREADS, 1)
@@ -497,8 +498,12 @@ __global__ void __launch_bounds__(CFF2_THREADS, 1)
 }
 
 // mma passes of CFF2's products on each route (ops/kernels/icnet_head.py
-// PRECISION)
-constexpr int kPredictPasses = 3, kScorePasses = 1;
+// PRECISION): on the score route the weights as hi + lo (tc.cuh PASSES
+// 2), as the ENet tail's Final: in one pass their rounding shifts every
+// position's fused8 alike, which an image's mean does not average out
+// (1.29e-4 an image at chip_smoke.py --seed 3, classifier x5; 1.2e-7 in
+// two passes in tools/cpu_emu.py)
+constexpr int kPredictPasses = 3, kScorePasses = 2;
 
 }  // namespace
 }  // namespace ssal

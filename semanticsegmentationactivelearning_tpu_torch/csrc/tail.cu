@@ -29,7 +29,8 @@
 // is a GEMM of [positions x K] by [K x N] on the tensor cores:
 // mma.sync.m16n8k8 TF32 (tc.cuh), once or as 3xTF32 (hi/lo split of
 // both operands, PASSES 3), fp32 accumulation: 3xTF32 for labels, one
-// pass for scores (kPredictPasses, kScorePasses). A warp takes 16
+// pass for scores (kPredictPasses, kScorePasses) but the Final's
+// weights as hi + lo (kFinalScorePasses). A warp takes 16
 // positions (a rectangle's positions in row-major order, or one phase of
 // a transposed conv) by 8-32 output channels; its A fragments are read
 // from the activation buffers in shared memory (channel stride = 4 mod
@@ -55,7 +56,7 @@
 // _score_kernel :40): the Final + entropy mean from the pre-Final
 // features [N,H/2,W/2,16] f32 and the Final's GEMM record alone
 // (tail.py pack_final, the bits of the tail pack's FIN). It runs
-// tail5_kernel's Final (final_phases) in one TF32 pass on a tile of
+// tail5_kernel's Final (final_phases) on the score route on a tile of
 // DECONV_ROWS x 16 half-res positions staged by cp.async with the row
 // above and the column to the left; the record is staged once a block.
 // What bounds it: the features' 67 MB at batch 8, 512x1024 (0.020 ms at
@@ -371,6 +372,14 @@ struct Ent {
 // edge). Pixels outside the H x Wd image are skipped. Score: returns
 // this thread's sum of its pixels' confidences (block_partial adds the
 // block's); predict: writes the labels into lab [2TR][2T5].
+//
+// The score route's Final takes its weights as hi + lo (tc.cuh PASSES
+// 2): in one TF32 pass the weights' rounding shifts every pixel's logits
+// alike, which the image's mean does not average out, and a saturated
+// Final (its kernel x1000) moved an image's score by 3.3e-4 (PERF.md);
+// the features' rounding differs by position and averages out.
+constexpr int kFinalScorePasses = 2;
+
 template <bool kScore, int PASSES, int NTF, int TR, int P>
 __device__ __forceinline__ float final_phases(const float* X1,
                                               const Smem& L, int n, int C,
@@ -652,7 +661,8 @@ __global__ void __launch_bounds__(T5_THREADS, 2)
 
   // --- Final ------------------------------------------------------------
   int8_t* const lab = reinterpret_cast<int8_t*>(A);  // [2*T5][2*T5]
-  const float total = final_phases<kScore, PASSES, NTF, T5, HS>(
+  const float total =
+      final_phases<kScore, kScore ? kFinalScorePasses : PASSES, NTF, T5, HS>(
       X + (HS + 1) * S16, layer(FIN), P.l[FIN - T5_FIRST].n, C, hr0, hc0, H,
       Wd, lab);
   if (kScore) {
@@ -727,7 +737,8 @@ size_t tail5_smem(const Layout& L) {
 }
 
 // mma passes of each route: one TF32 pass moves a few decided labels of
-// a 1024x2048 batch but keeps scores within 2e-5 of fp32's (PERF.md)
+// a 1024x2048 batch but keeps scores within 2e-5 of fp32's (PERF.md);
+// the score route's Final: kFinalScorePasses
 constexpr int kPredictPasses = 3, kScorePasses = 1;
 
 int launch_stage4(const float* y, const int8_t* sw2, const float* pack,
@@ -782,13 +793,14 @@ int launch_stage5(const float* x4, const float* mask1, const float* pack,
   return (int)cudaGetLastError();
 }
 
-// deconv_score_kernel for c classes, in one TF32 pass (the score route)
+// deconv_score_kernel for c classes, the Final as the score route takes
+// it (kFinalScorePasses)
 auto deconv_for(int c) {
   switch (final_ntf(c)) {
-    case 1: return deconv_score_kernel<kScorePasses, 1>;
-    case 2: return deconv_score_kernel<kScorePasses, 2>;
-    case 3: return deconv_score_kernel<kScorePasses, 3>;
-    default: return deconv_score_kernel<kScorePasses, 4>;
+    case 1: return deconv_score_kernel<kFinalScorePasses, 1>;
+    case 2: return deconv_score_kernel<kFinalScorePasses, 2>;
+    case 3: return deconv_score_kernel<kFinalScorePasses, 3>;
+    default: return deconv_score_kernel<kFinalScorePasses, 4>;
   }
 }
 

@@ -46,7 +46,9 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // NT column tiles j (both warp-uniform), A_m given as this lane's four
 // values a[m] (rows g, g+8 x cols q, q+4), B the k-step's 8 rows of a
 // weight [k][ws] from column n0, each B fragment read (and split) once
-// for all row tiles. PASSES 1: TF32 products; 3: hi*hi + hi*lo + lo*hi
+// for all row tiles. PASSES 1: TF32 products; 2: A in TF32 by the hi/lo
+// split of B, hi*lo + hi*hi (the weights' rounding, the same at every
+// position, cancels; A's varies by position); 3: hi*hi + hi*lo + lo*hi
 // (3xTF32).
 template <int MT, int NT, int PASSES>
 __device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
@@ -71,14 +73,14 @@ __device__ __forceinline__ void mma_kstep_rows(float (&acc)[MT][NT][4],
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (j >= cols) break;
-    if (PASSES == 3) {
+    if (PASSES >= 2) {
       uint32_t bh0, bl0, bh1, bl1;
       split_tf32(w0[8 * j], bh0, bl0);
       split_tf32(w1[8 * j], bh1, bl1);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         if (m >= rows) break;
-        mma_tf32(acc[m][j], al[m], bh0, bh1);
+        if (PASSES == 3) mma_tf32(acc[m][j], al[m], bh0, bh1);
         mma_tf32(acc[m][j], ah[m], bl0, bl1);
         mma_tf32(acc[m][j], ah[m], bh0, bh1);
       }

@@ -80,32 +80,47 @@ def _crops(stack: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
     return stack[b[:, None, None], rows[:, :, None], cols[:, None, :]]
 
 
+def _span(heights, span) -> Tuple[int, int]:
+    """``(first row, rows drawn)``: a batch's rows within the global
+    batch whose draws are made (``span``), by default the batch."""
+    return (0, len(heights)) if span is None else span
+
+
 def draw_crops(heights, widths, crop_hw: Tuple[int, int],
-               generator: torch.Generator):
+               generator: torch.Generator, span=None):
     """A batch's crop and flip draws on the generator's device: crop
     origins ``floor(u * (max(valid - crop, 0) + 1))`` for u ~ U[0, 1)
-    and flips ~ Bernoulli(0.5). Returns (tops, lefts, flips)."""
+    and flips ~ Bernoulli(0.5). ``span = (first, total)``: the batch is
+    rows ``first ..`` of a global batch of ``total`` rows, whose draws
+    are made and this batch's kept (a rank's rows draw what one process
+    draws for them). Returns (tops, lefts, flips)."""
     dev = generator.device
     heights = _as_index(heights, dev)
     widths = _as_index(widths, dev)
+    first, total = _span(heights, span)
+    rows = slice(first, first + heights.shape[0])
     max_top = (heights - crop_hw[0]).clamp(min=0)
     max_left = (widths - crop_hw[1]).clamp(min=0)
-    u = torch.rand((3, heights.shape[0]), generator=generator, device=dev)
+    u = torch.rand((3, total), generator=generator, device=dev)[:, rows]
     tops = torch.floor(u[0] * (max_top + 1)).long()
     lefts = torch.floor(u[1] * (max_left + 1)).long()
     return tops, lefts, u[2] < 0.5
 
 
 def draw_augmentation(heights, widths, crop_hw: Tuple[int, int],
-                      channels: int, generator: torch.Generator):
+                      channels: int, generator: torch.Generator,
+                      span=None):
     """The train path's random draws for a batch, on the generator's
     device: :func:`draw_crops`, then scales ~ U[0.8, 1.4) of shape
-    ``[B, 1, 1, channels]``. Returns (tops, lefts, flips, scales)."""
-    tops, lefts, flips = draw_crops(heights, widths, crop_hw, generator)
-    scales = 0.8 + 0.6 * torch.rand((tops.shape[0], 1, 1, channels),
+    ``[B, 1, 1, channels]`` (``span``: as :func:`draw_crops`). Returns
+    (tops, lefts, flips, scales)."""
+    tops, lefts, flips = draw_crops(heights, widths, crop_hw, generator,
+                                    span)
+    first, total = _span(tops, span)
+    scales = 0.8 + 0.6 * torch.rand((total, 1, 1, channels),
                                     generator=generator,
                                     device=generator.device)
-    return tops, lefts, flips, scales
+    return tops, lefts, flips, scales[first:first + tops.shape[0]]
 
 
 def crop_flip_scale(stack: torch.Tensor, tops, lefts, flips,
@@ -125,11 +140,13 @@ def crop_flip_scale(stack: torch.Tensor, tops, lefts, flips,
 
 def augment_batch(stack: torch.Tensor, heights, widths,
                   generator: torch.Generator, crop_hw: Tuple[int, int],
-                  channels: int = 3):
+                  channels: int = 3, span=None):
     """Training-path augmentation of a uint8 ``[B, Hs, Ws, channels+1]``
-    stack; ``generator`` lives on the stack's device. Returns
+    stack; ``generator`` lives on the stack's device; ``span``: the
+    batch's rows in a global batch (:func:`draw_crops`). Returns
     ``(image_raw, image, label, mask)`` (see :func:`crop_flip_scale`)."""
-    draws = draw_augmentation(heights, widths, crop_hw, channels, generator)
+    draws = draw_augmentation(heights, widths, crop_hw, channels, generator,
+                              span)
     return crop_flip_scale(stack, *draws, crop_hw=crop_hw, channels=channels)
 
 

@@ -9,9 +9,9 @@ prediction PNGs (the counterpart of the JAX package's root
 
 Reads every ``.tfrecord`` under the data directory (or its test/
 subdirectory), serves each batch through :func:`make_predict_fn` on
-the first CUDA device (the hand-written kernel chain of ENet or ICNet;
-without a CUDA device it raises) or, with ``--device cpu``, on the CPU
-(the plain PyTorch chain), and writes
+every visible CUDA device (the hand-written kernel chain of ENet or
+ICNet; without a CUDA device it raises) or, with ``--device cpu``, on
+the CPU (the plain PyTorch chain), and writes
 ``{output}/{id}.png`` with the dataset-id reverse embedding (default)
 or the colormap (``--color``). ``-c`` takes a port checkpoint or one
 written by the JAX package. ``--output-size H W`` serves through the
@@ -23,13 +23,20 @@ after its RGB planes and builds the model with that many input planes
 error); the kernel chains take RGB only, so such a model serves through
 the plain forward, as the JAX CLI's does.
 
+One process serves over every visible card, as the JAX CLI shards each
+batch over its local devices (root inference.py:204-216): where the
+batch size divides by the card count, each batch is split by rows, each
+card runs its own replica's kernel chain on its rows, and the label
+maps are gathered in order; otherwise it serves on the first card.
+
 Not ported yet (it raises and names its ROADMAP.md item): ``--view``.
-Serving uses one device; multi-GPU serving is not ported either.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import logging
 import os
@@ -60,33 +67,55 @@ def kernel_route(in_channels: int, out_hw=None) -> bool:
 
 
 def make_predict_fn(model, lut: torch.Tensor, height: int, width: int,
-                    in_channels: int, device, out_hw=None):
-    """The serving hot path: a uint8 record stack ``[B, H, W, >=C]`` on
-    ``device`` -> uint8 label (or colormap) maps cropped to
-    ``height x width``, all on ``device``. Where :func:`kernel_route`
-    holds, the forward is ``model.fused_predict`` (ENet's or ICNet's):
-    the kernel chain on CUDA, its plain version on the CPU.
-    argmax(logits) equals the reference's argmax after softmax.
+                    in_channels: int, devices, out_hw=None):
+    """The serving hot path: a uint8 record stack ``[B, H, W, >=C]`` ->
+    uint8 label (or colormap) maps cropped to ``height x width``, on the
+    first of ``devices`` (a device or a list of them). Where
+    :func:`kernel_route` holds, the forward is ``model.fused_predict``
+    (ENet's or ICNet's): the kernel chain on CUDA, its plain version on
+    the CPU. argmax(logits) equals the reference's argmax after softmax.
 
     Otherwise the plain forward, as the JAX ``make_predict_fn``
     computes it: the logits cropped to ``height x width``, softmax, with
     ``out_hw`` a bilinear resize of the probabilities to ``out_hw``
-    (antialiased on the way down), argmax."""
-    device = torch.device(device)
-    model = model.to(device).eval()
-    lut = lut.to(device)
+    (antialiased on the way down), argmax.
+
+    With several devices each holds a replica of ``model`` and a batch
+    whose size divides by their count is split by rows: each device
+    serves its rows (a CUDA device's kernels launch on its own stream,
+    so the cards work at once) and the maps are gathered in row order
+    on the first device. Another batch size serves on the first."""
+    devices = [torch.device(d) for d in (
+        devices if isinstance(devices, (list, tuple)) else [devices])]
+    model = model.to(devices[0]).eval()
+    replicas = [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
+    luts = [lut.to(d) for d in devices]
     fused = kernel_route(in_channels, out_hw)
+
+    def serve(i: int, stack: torch.Tensor) -> torch.Tensor:
+        image = stack[..., :in_channels].float().div_(255.0).contiguous()
+        if fused:
+            pred = replicas[i].fused_predict(image)
+            return luts[i][pred[:, :height, :width].long()]
+        prob = torch.softmax(replicas[i](image)[:, :height, :width],
+                             dim=-1)
+        if out_hw is not None:
+            prob = xops.resize_bilinear(prob, out_hw)
+        return luts[i][prob.argmax(dim=-1)]
+
+    def on(d: torch.device):
+        return torch.cuda.device(d) if d.type == "cuda" \
+            else contextlib.nullcontext()
 
     @torch.inference_mode()
     def predict(stack: torch.Tensor) -> torch.Tensor:
-        image = stack[..., :in_channels].float().div_(255.0).contiguous()
-        if fused:
-            pred = model.fused_predict(image)
-            return lut[pred[:, :height, :width].long()]
-        prob = torch.softmax(model(image)[:, :height, :width], dim=-1)
-        if out_hw is not None:
-            prob = xops.resize_bilinear(prob, out_hw)
-        return lut[prob.argmax(dim=-1)]
+        if len(devices) == 1 or stack.shape[0] % len(devices):
+            return serve(0, stack.to(devices[0]))
+        outs = []
+        for i, rows in enumerate(stack.chunk(len(devices))):
+            with on(devices[i]):
+                outs.append(serve(i, rows.to(devices[i], non_blocking=True)))
+        return torch.cat([o.to(devices[0]) for o in outs])
 
     return predict
 
@@ -193,12 +222,19 @@ def main(args) -> int:
                     torch.cuda.get_device_name(device))
     else:
         logger.info("Serving on the CPU (plain chain), as --device cpu asks")
+    devices = [device]
     if device.type == "cuda" and torch.cuda.device_count() > 1:
-        logger.info("Serving on one of %d GPUs; multi-GPU serving is not "
-                    "ported yet (ROADMAP.md Queue 1 item 9)",
-                    torch.cuda.device_count())
+        cards = torch.cuda.device_count()
+        if args.batch_size % cards == 0:
+            devices = [torch.device("cuda", i) for i in range(cards)]
+            logger.info("Serving over %d cards: %d rows of each batch a "
+                        "card", cards, args.batch_size // cards)
+        else:
+            logger.info("Serving on %s alone: the batch size %d does not "
+                        "divide by the %d cards", device, args.batch_size,
+                        cards)
     predict = make_predict_fn(model, torch.as_tensor(np.asarray(lut)),
-                              height, width, in_channels, device, out_hw)
+                              height, width, in_channels, devices, out_hw)
 
     written = 0
     with png_writer.AsyncPngWriter() as writer:

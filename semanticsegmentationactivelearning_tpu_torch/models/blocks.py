@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import nn as xops
+from ..parallel import distributed
 
 BN_EPS = 1e-3
 # flax BatchNorm(momentum=0.90): running = 0.9 * running + 0.1 * batch
@@ -151,9 +152,10 @@ class PReLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis with flax's names mapped
-    to torch's (scale/bias/mean/var -> weight/bias/running_mean/
-    running_var) and eps 1e-3."""
+    """Batch norm over the last axis with flax's names mapped to torch's
+    (scale/bias/mean/var -> weight/bias/running_mean/running_var) and eps
+    1e-3. In train mode under several ranks (``parallel.distributed``)
+    its statistics are the global batch's."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -173,6 +175,8 @@ class BatchNorm(nn.Module):
         if not training:
             s, t = self.scale_shift()
             return x * s + t
+        if distributed.active():
+            return self._forward_global(x)
         # the batch's mean and biased variance over N, H, W; the NCHW
         # view of an NHWC tensor is channels_last, which the CUDA kernel
         # takes as it is. The CPU's channels_last backward sums each
@@ -191,6 +195,77 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(BN_MOMENTUM).add_(
                 var, alpha=1.0 - BN_MOMENTUM)
         return out.permute(0, 2, 3, 1)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch of several ranks, as the JAX
+        step's BN reduces over the sharded batch. The statistics: each
+        rank's count, mean and M2 per channel (two passes, summed in
+        float64 as the CPU's batch norm sums) in a slot of its own,
+        summed over the ranks in one all-reduce and merged by Chan's rule
+        (no cancellation of E[x^2] - E[x]^2); the running update takes
+        the biased variance. The normalisation is
+        :class:`_GlobalBatchNorm`, whose backward all-reduces BN's two
+        per-channel gradient sums."""
+        c = x.shape[-1]
+        with torch.no_grad():
+            flat = x.reshape(-1, c)
+            n = flat.shape[0]
+            mean = flat.sum(0, dtype=torch.float64) / n
+            m2 = (flat - mean.to(x.dtype)).square().sum(0, dtype=torch.float64)
+            m2 -= n * (mean - mean.to(x.dtype).double()).square()
+            mine = torch.stack([torch.full_like(mean, n), mean, m2])
+            rank = distributed.process_index()
+            slots = distributed.all_reduce_sum(torch.stack([
+                mine if r == rank else torch.zeros_like(mine)
+                for r in range(distributed.process_count())]))
+            counts, means, m2 = slots.unbind(1)
+            total = counts.sum(0)
+            mean = (counts * means).sum(0) / total
+            var = (m2.sum(0) + (counts * (means - mean).square()).sum(0)) \
+                / total
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                var, alpha=1.0 - BN_MOMENTUM)
+        return _GlobalBatchNorm.apply(x, self.weight, self.bias, mean,
+                                      torch.rsqrt(var + BN_EPS),
+                                      total.to(x.dtype))
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """``(x - mean) * invstd * weight + bias`` over the last axis with the
+    global batch's ``mean`` and ``invstd`` (the ``count`` positions of
+    every rank), differentiated as batch norm is (and as
+    ``nn.SyncBatchNorm`` does): the backward sums ``dy`` and ``dy * (x -
+    mean)`` per channel over the ranks in one all-reduce (summed in
+    float64) and gives the input's gradient from the global sums, the
+    weight's and the bias's from this rank's (the train step sums them
+    over the ranks). Autograd through the merged statistics would keep
+    the merge's intermediates and all-reduce the slots' gradients
+    instead."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, count):
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        return (x - mean) * (invstd * weight) + bias
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        c = x.shape[-1]
+        xmu = x - mean
+        # summed in float64, as the CPU's batch norm backward sums
+        local = torch.stack([
+            dy.reshape(-1, c).sum(0, dtype=torch.float64),
+            (dy * xmu).reshape(-1, c).sum(0, dtype=torch.float64)])
+        sum_dy, sum_dy_xmu = distributed.all_reduce_sum(local.clone()) \
+            .to(x.dtype)
+        local = local.to(x.dtype)
+        dx = (dy - sum_dy / count
+              - xmu * (invstd.square() * sum_dy_xmu / count)) \
+            * (invstd * weight)
+        return dx, local[1] * invstd, local[0], None, None, None
 
 
 class Initial(nn.Module):

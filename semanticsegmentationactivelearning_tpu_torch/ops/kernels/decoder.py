@@ -11,8 +11,8 @@ here, before either version runs, so that the kernel and its plain
 version take the same inputs.
 
 The kernel is the tail's second half, ``csrc/tail.cu`` ``tail5_kernel``
-on the score route (``ssal_tail_decode_score``: one TF32 pass,
-``tail.PRECISION``), which has this contract with ``f4`` as its x4: it
+on the score route (``ssal_tail_decode_score``: one TF32 pass, the
+Final's weights as hi + lo, ``tail.PRECISION``), which has this contract with ``f4`` as its x4: it
 reads the tail's GEMM records (``tail.pack_tail``), keeps the half-res
 activations in shared memory and the logits in registers, and writes
 one partial sum of confidences a block.

@@ -10,7 +10,8 @@ the 3x3/s2 transposed conv (``x[-1] = 0`` at the top and left edges).
 The CUDA kernel is ``csrc/tail.cu`` ``deconv_score_kernel``: the tail's
 Final (``final_phases``, which ``tail5_kernel`` runs too) on tiles of
 the features staged in shared memory, its four exact-tap phase GEMMs on
-the tensor cores in one TF32 pass (``tail.PRECISION["score"]``), the
+the tensor cores in TF32 with the weights as hi + lo, two passes
+(``tail.PRECISION["score"]``, ``csrc/tail.cu`` kFinalScorePasses), the
 entropy online over the classes in registers, one partial sum of
 confidences a tile of ``tail.T5`` x ``tail.T5`` half-res positions
 (:func:`deconv_partials`). It reads the Final's GEMM record

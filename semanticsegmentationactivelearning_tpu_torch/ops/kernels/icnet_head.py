@@ -37,7 +37,9 @@ MAX_PREDICT_CLASSES = 127  # labels are int8
 # The tensor-core precision of CFF2's products on the CFF2 + head
 # kernel's routes (csrc/icnet_head.cu kPredictPasses, kScorePasses), as
 # the ENet kernels': 3xTF32 (hi/lo split of both operands) for labels,
-# one TF32 pass for scores; each is held one precision below by
+# TF32 for scores, the weights as hi + lo in two passes (one pass's
+# rounding of the weights shifted an image's score by 1.29e-4 at
+# chip_smoke.py --seed 3, PERF.md); each is held one precision below by
 # chip_smoke.py's PRECISION_GATE on fused8. The classifier's products
 # are 3xTF32 on both routes: one pass shifts every logit alike and took
 # the error of a score from 5.9e-5 to 9.8e-5 of the 1e-4 tolerance,

@@ -33,7 +33,10 @@ LAUNCHES_PER_CALL = 2
 # accuracy) for labels, one TF32 pass for scores. One pass moves a few
 # decided labels of a 1024x2048 batch (fails the label gate) but keeps
 # the scores within 2e-5 of fp32's (the gate is 1e-4), measured on the
-# H100 by chip_smoke.py (PERF.md).
+# H100 by chip_smoke.py (PERF.md). The score route's Final takes its
+# weights as hi + lo in two passes (kFinalScorePasses): one pass's
+# rounding of a saturated Final's weights shifts every pixel's
+# confidence alike, 3.3e-4 an image at its kernel x1000 (PERF.md).
 PRECISION = {"predict": "3xTF32", "score": "TF32"}
 # half-res positions a side of the score kernels' tile (csrc/tail.cu T5;
 # deconv_score_kernel's DECONV_ROWS x T5): 32x32 pixels, one partial sum

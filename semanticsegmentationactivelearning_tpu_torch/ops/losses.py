@@ -8,6 +8,10 @@ log-inverse class weighting ``w = 1/log(c + (e - c) * p_true)`` and the
 two-phase reduction (sum over the batch, divide by the mask sum, sum
 over the plane), all in float32 as the JAX package computes them.
 
+Under several ranks each returns the rank's share of the global
+batch's loss (the divisor is the global mask sum), which the train
+step's gradient sum completes.
+
 ``multiscale_masked_softmax_cross_entropy`` sums the CE over the
 model's loss heads, nearest-resizing labels and mask to each head
 (TF1's legacy rule ``src = floor(dst * in/out)``).
@@ -29,6 +33,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ..parallel import distributed
 
 _EULER = 1.718281828459045  # the reference's constant (losses.py:27)
 
@@ -75,9 +81,13 @@ def masked_softmax_cross_entropy(labels: torch.Tensor, logits: torch.Tensor,
     # the mask (in the AL loop: a tail batch of pseudo-labelled rows of
     # which no pixel clears the threshold) has a loss of 0, where the
     # JAX package's 0 / 0 gives NaN, which the update spreads to every
-    # weight; with one pixel or more the divisor is the mask's sum
+    # weight; with one pixel or more the divisor is the mask's sum. Under
+    # several ranks (parallel.distributed) it is the global batch's mask
+    # sum and this is the rank's share of the global loss: the shares sum
+    # to it, and so do their gradients
     loss = loss.sum(dim=0)
-    return (loss / mask.sum().clamp(min=1.0)).sum()
+    total = distributed.all_reduce_sum(mask.sum())
+    return (loss / total.clamp(min=1.0)).sum()
 
 
 def _nearest_resize_2d(x: torch.Tensor, out_hw: Tuple[int, int]

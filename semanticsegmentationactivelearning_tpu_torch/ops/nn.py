@@ -133,10 +133,13 @@ class MCDropout:
     dropout call takes the next ``C`` channel slots, and a slot's
     uniform is a hash of ``(key, index[i], pass, slot)``: an image's
     masks depend on the key, the index the caller gives it and the
-    pass, not on the rest of the batch or the device. Each call draws
-    its own slots: ENet's 27 draws a forward take over ten times the
-    time of one draw of its 2720 slots, but the device stays busy 97%
-    of the MC pass, so the launches overlap its work (PERF.md, §6)."""
+    pass, not on the rest of the batch or the device. One pass of it in
+    train mode is the train step's dropout (``train.steps.
+    dropout_masks``: the key a step's, the index a row's in the global
+    batch). Each call draws its own slots: ENet's 27 draws a forward
+    take over ten times the time of one draw of its 2720 slots, but the
+    device stays busy 97% of the MC pass, so the launches overlap its
+    work (PERF.md, §6)."""
 
     def __init__(self, key, index: torch.Tensor, passes):
         key = key if isinstance(key, (tuple, list)) else (key,)

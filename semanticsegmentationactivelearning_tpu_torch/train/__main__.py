@@ -7,13 +7,14 @@ JAX package's root ``train.py`` (reference: train.py).
         [--device {cuda,cpu}]
 
 The subcommands, flags and conf files are the JAX CLI's. It trains on
-the first CUDA device (``--device cuda``, the default, raises without
-one) or, with ``--device cpu``, on the CPU. Each batch goes
-``RecordLoader`` -> ``device_prefetch`` (uint8 stacks) ->
-``pipeline.augment_batch`` -> ``train_step``; the example order comes
-from ``np.random.default_rng(seed + 1)`` and each step's draws
-(augmentation, then dropout) from a ``torch.Generator`` seeded from
-``np.random.default_rng(seed)``. Each epoch writes its ``train_iter``
+a CUDA device (``--device cuda``, the default, raises without one) or,
+with ``--device cpu``, on the CPU. Each batch goes ``RecordLoader`` ->
+``device_prefetch`` (uint8 stacks) -> ``pipeline.augment_batch`` ->
+``train_step``; the example order comes from
+``np.random.default_rng(seed + 1)``, each step's augmentation from a
+``torch.Generator`` seeded from ``np.random.default_rng(seed)`` and its
+dropout masks from ``(seed, step)`` and each row's index in the global
+batch (``steps.dropout_masks``). Each epoch writes its ``train_iter``
 and ``train`` records to ``{log_dir}/metrics.jsonl``, runs a
 validation epoch (``val``), dumps image summaries at their cadence and
 saves ``{log_dir}/model-N.ckpt``; the run ends with ``final_val``. It
@@ -25,9 +26,17 @@ takes the cascade loss over its three heads). ``freiburg -m MOD ...``
 stacks each record's extra modalities after its RGB planes (``rgb`` and
 ``image`` name the RGB planes themselves) and builds the model with that
 many input planes. bf16 models (ROADMAP.md Queue 1 item 2) raise.
-``train_group`` is read and ignored (grouped dispatch is not ported),
-and with several GPUs it trains on the first (multi-GPU training is
-Queue 1 item 9).
+``train_group`` is read and ignored (grouped dispatch is not ported).
+
+Data-parallel over several processes: ``torchrun --nproc_per_node N -m
+semanticsegmentationactivelearning_tpu_torch.train ...`` (a card a
+rank; ``parallel.distributed`` for the backend rule). The conf's
+``batch_size`` is the global batch and must divide by the world size;
+each rank decodes its rows of every global batch, and a step equals the
+one-process step on the global batch (global batch norm, CE divisor and
+dropout keys, the gradients summed). Rank 0 alone writes
+``metrics.jsonl``, the checkpoints, ``checkpoint.json``,
+``config.json`` and ``images/``; every rank restores on a resume.
 """
 
 from __future__ import annotations
@@ -45,12 +54,13 @@ from ..data import loader, pipeline
 from ..data.device_prefetch import device_prefetch
 from ..models import conf_model_kwargs, get_model
 from ..ops import metrics as xmetrics
+from ..parallel import distributed
 from ..utils import cli, images
 from . import checkpoint as ckpt
 from . import config as conf
 from . import optim
-from .steps import (create_train_state, make_eval_step, make_predict_step,
-                    make_train_step)
+from .steps import (create_train_state, dropout_masks, make_eval_step,
+                    make_predict_step, make_train_step)
 
 logger = logging.getLogger(__name__)
 
@@ -69,9 +79,15 @@ def _on_device(b, device):
 
 def run_eval_epoch(eval_step, val_loader, crop_hw, num_classes, device,
                    desc="val", channels=3):
+    """The eval epoch's confusion over ``val_loader``'s records (under
+    several ranks each decodes its rows of every global batch, and the
+    eval step sums the confusion over the ranks)."""
     acc = xmetrics.ConfusionAccumulator(num_classes)
-    batches = cli.progress(device_prefetch(val_loader.batches(), device),
-                           desc, total=val_loader.num_batches())
+    global_bs = val_loader.batch_size * distributed.process_count()
+    batches = cli.progress(
+        device_prefetch(distributed.batches(
+            val_loader, np.arange(val_loader.count), global_bs), device),
+        desc, total=-(-val_loader.count // global_bs))
     for b in batches:
         heights, widths, valid = _on_device(b, device)
         image, label, mask = pipeline.eval_batch(
@@ -88,10 +104,18 @@ def main(args) -> int:
     if params["network"].get("dtype") in ("bfloat16", "bf16"):
         raise _not_ported("A bf16 model (network.dtype)", "2")
     device = cli.device_from_args(args.device)
+    batch_size = params["batch_size"]
+    world = distributed.env_world_size()
+    distributed.check_batch_divisible(batch_size, world)
+    if distributed.launched():
+        distributed.initialize_distributed(device)
+    is_main = distributed.is_main()
+    # this rank's rows of each global batch, from row `first` on
+    local_bs = batch_size // world
+    first = distributed.process_index() * local_bs
     dataset = cli.make_dataset(args)
     in_hw = (params["network"]["input"]["height"],
              params["network"]["input"]["width"])
-    batch_size = params["batch_size"]
 
     # coarse Cityscapes also sweeps train_extra/ (train.py:53-60)
     train_files = sorted(
@@ -105,10 +129,10 @@ def main(args) -> int:
         return 1
     # extra modalities stack after the RGB planes (train.py:100-133)
     modalities = cli.extra_modalities(args)
-    train_loader = loader.RecordLoader(train_files, batch_size, min_hw=in_hw,
+    train_loader = loader.RecordLoader(train_files, local_bs, min_hw=in_hw,
                                        modalities=modalities)
     in_channels = train_loader.channels
-    val_loader = loader.RecordLoader(val_files, batch_size, min_hw=in_hw,
+    val_loader = loader.RecordLoader(val_files, local_bs, min_hw=in_hw,
                                      modalities=modalities) \
         if val_files else None
     if modalities:
@@ -119,12 +143,13 @@ def main(args) -> int:
                 len(val_files))
     if device.type == "cuda":
         logger.info("Training on %s", torch.cuda.get_device_name(device))
-        if torch.cuda.device_count() > 1:
-            logger.info("Training on one of %d GPUs; multi-GPU training is "
-                        "not ported yet (ROADMAP.md Queue 1 item 9)",
-                        torch.cuda.device_count())
     else:
         logger.info("Training on the CPU, as --device cpu asks")
+    if world > 1:
+        logger.info("Data-parallel over %d ranks: %d of each global batch "
+                    "of %d a rank", world, local_bs, batch_size)
+    elif distributed.launched():
+        logger.info("A world of one rank: the collectives run on it")
     if int(params.get("train_group", 1)) > 1:
         logger.info("train_group %d read and ignored: one dispatch a step "
                     "(grouped dispatch is not ported)",
@@ -156,19 +181,22 @@ def main(args) -> int:
         logger.info("Resuming from checkpoint \"%s\"", restore_from)
         ckpt.restore_training_state(restore_from, state)
 
-    if not os.path.exists(os.path.join(args.log_dir, "config.json")):
+    if is_main and not os.path.exists(os.path.join(args.log_dir,
+                                                    "config.json")):
         conf.dump_params(params, args.log_dir)
 
     manager = ckpt.CheckpointManager(args.log_dir, async_io=True)
     writer = cli.MetricsWriter(args.log_dir,
                                tensorboard=getattr(args, "tensorboard",
-                                                   False))
+                                                   False), enabled=is_main)
     train_step = make_train_step(model, dataset.num_classes, hparams)
     eval_step = make_eval_step(model, dataset.num_classes)
     img_cfg = params.get("image_summaries") or {}
     img_cadence = int(img_cfg.get("cadence", 1))
     img_count = int(img_cfg.get("count", 2))
-    predict_step = make_predict_step(model) if img_cadence > 0 else None
+    # the summaries' eval forward runs on rank 0 alone
+    predict_step = make_predict_step(model) \
+        if img_cadence > 0 and is_main else None
 
     def dump_image_summaries(epoch):
         src, tag = (val_loader, "val") if val_loader is not None \
@@ -199,7 +227,8 @@ def main(args) -> int:
             step0 = int(state.step)
             order = order_rng.permutation(len(train_files))
             batches = cli.progress(
-                device_prefetch(train_loader.batches(order), device),
+                device_prefetch(distributed.batches(train_loader, order,
+                                                    batch_size), device),
                 "train[%3d/%3d]" % (epoch, params["epochs"]),
                 total=train_batches)
             for b in batches:
@@ -208,9 +237,11 @@ def main(args) -> int:
                 heights, widths, valid = _on_device(b, device)
                 _raw, image, label, mask = pipeline.augment_batch(
                     b["stack"], heights, widths, gen, crop_hw=in_hw,
-                    channels=in_channels)
+                    channels=in_channels, span=(first, batch_size))
+                masks = dropout_masks((args.seed, int(state.step)),
+                                      first + np.arange(local_bs), device)
                 m = train_step(state, {"image": image, "label": label,
-                                       "mask": mask, "valid": valid}, gen)
+                                       "mask": mask, "valid": valid}, masks)
                 iter_buf.append(m)
                 acc.update(m["confusion"])
             scalars = iter_buf.flush()
@@ -254,7 +285,8 @@ def main(args) -> int:
 
             if predict_step is not None and epoch % img_cadence == 0:
                 dump_image_summaries(epoch)
-            manager.save("model", state)
+            if is_main:
+                manager.save("model", state)
 
     # train.py:354-374: the final standalone validation
     if val_loader is not None:
@@ -273,6 +305,7 @@ def main(args) -> int:
     logger.info("Training successfully finished %d epochs", params["epochs"])
     manager.close()
     writer.close()
+    distributed.shutdown()
     return 0
 
 

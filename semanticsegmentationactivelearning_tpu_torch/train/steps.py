@@ -25,8 +25,15 @@ adds nothing to the loss or the metrics. PyTorch runs eagerly, so each
 step is a plain closure over the model. The JAX steps take phase logits
 (``Final(phase=True)``); their docstrings hold that the confusion counts
 equal those of the plain logits for ENet, so these take the plain ones.
-Not ported: grouped dispatch, remat and the mesh (ROADMAP.md "Not to
-port", Queue 1 items 9-10).
+
+Under several ranks (``parallel.distributed``) each rank steps on its
+rows of the global batch and the steps equal the one-process step on
+the whole batch, as the JAX steps under a ``("data",)`` mesh do: batch
+norm and the CE's divisor are global, the train step sums the gradients
+over the ranks and adds the regularization on rank 0 alone, and the
+metrics (loss, cost, confusion) are the global batch's on every rank.
+Not ported: grouped dispatch, remat and spatial sharding (ROADMAP.md
+"Not to port", Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -34,11 +41,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..ops import acquisition, losses, metrics
 from ..ops import nn as xops
 from ..ops.kernels import packing
+from ..parallel import distributed
 
 
 @dataclasses.dataclass
@@ -64,6 +73,16 @@ def create_train_state(model, optimizer, scheduler,
         from ..models.blocks import reset_parameters
         reset_parameters(model, torch.Generator().manual_seed(int(seed)))
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
+
+
+def dropout_masks(key, rows, device) -> xops.MCDropout:
+    """The train step's dropout masks for a batch whose rows have the
+    global indices ``rows`` in the step's global batch: one pass of
+    ``ops.nn.MCDropout`` keyed on ``key`` (the CLIs': the seed and the
+    update count), so that a row's masks do not depend on how the batch
+    is split over ranks."""
+    return xops.MCDropout(key, torch.as_tensor(np.asarray(rows),
+                                               device=device), (0,))
 
 
 def pseudo_targets(model, batch: Dict[str, torch.Tensor],
@@ -93,12 +112,15 @@ def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
     """The supervised train step:
     ``train_step(state, batch, generator) -> metrics`` for ``batch =
     {"image", "label", "mask", "valid"}`` on the model's device and a
-    ``torch.Generator`` there for the dropout draws. It updates
+    generator of the dropout draws there (a ``torch.Generator``, or
+    :func:`dropout_masks`, whose draws do not depend on the batching,
+    as the CLIs pass). It updates
     ``state`` in place (weights, BN statistics, optimizer, scheduler,
     ``step += 1``) and returns ``{"loss", "cost", "learning_rate",
     "confusion"}``: the CE and CE + regularization as device scalars,
     the rate this update applied (the schedule at the pre-increment
-    step) and the batch's int64 confusion matrix. The optimizer and its
+    step) and the batch's int64 confusion matrix; under several ranks
+    the global batch's, the same on every rank. The optimizer and its
     schedule are the state's (``optim.make_optimizer``).
 
     :param model:       the model ``state`` trains (its
@@ -148,9 +170,13 @@ def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
             logits = outputs
             loss = losses.masked_softmax_cross_entropy(
                 label, logits, mask, num_classes, weight, label_smoothing)
-        cost = loss + losses.regularization_loss(m, l1, l2, glorot_scaling)
+        reg = losses.regularization_loss(m, l1, l2, glorot_scaling)
+        # the shares of the ranks' losses sum to the global loss; the
+        # regularization enters once, on rank 0
+        cost = loss + (reg if distributed.is_main() else reg.detach())
         state.optimizer.zero_grad(set_to_none=True)
         cost.backward()
+        distributed.all_reduce_grads(m.parameters())
         lr = state.scheduler.get_last_lr()[0]
         state.optimizer.step()
         state.scheduler.step()
@@ -159,9 +185,10 @@ def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
             m.clear_packs()
         state.step += 1
         with torch.no_grad():
-            conf = metrics.confusion_matrix(label, logits.argmax(dim=-1),
-                                            num_classes, mask)
-        return {"loss": loss.detach(), "cost": cost.detach(),
+            conf = distributed.all_reduce_sum(metrics.confusion_matrix(
+                label, logits.argmax(dim=-1), num_classes, mask))
+            loss = distributed.all_reduce_sum(loss.detach())
+        return {"loss": loss, "cost": loss + reg.detach(),
                 "learning_rate": lr, "confusion": conf}
 
     return train_step
@@ -170,14 +197,14 @@ def make_train_step(model, num_classes: int, hyperparams: Dict[str, Any],
 def make_eval_step(model, num_classes: int):
     """``eval_step(batch) -> [C, C]`` int64 confusion of the eval
     forward's argmax over ``batch = {"image", "label", "mask",
-    "valid"}``."""
+    "valid"}``; under several ranks the global batch's on every rank."""
 
     @torch.inference_mode()
     def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         pred = model(batch["image"]).argmax(dim=-1)
         mask = batch["mask"] * batch["valid"].float()[:, None, None]
-        return metrics.confusion_matrix(batch["label"], pred, num_classes,
-                                        mask)
+        return distributed.all_reduce_sum(metrics.confusion_matrix(
+            batch["label"], pred, num_classes, mask))
 
     return eval_step
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import datasets
+from ..parallel import distributed
 
 
 def setup_logging(config_path: str = "util/logging.json") -> None:
@@ -158,13 +159,18 @@ def make_dataset(args):
 def device_from_args(name: str) -> torch.device:
     """The device ``--device`` names. ``cuda`` (the default) needs a
     CUDA device and raises without one: the CPU runs only when the
-    caller asks for it."""
-    if name == "cuda" and not torch.cuda.is_available():
+    caller asks for it. ``cuda`` is the local rank's card (torchrun's
+    ``LOCAL_RANK``, 0 in one process; modulo the card count where the
+    ranks of a host share its cards: ``parallel.distributed``)."""
+    if name != "cuda":
+        return torch.device(name)
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda: no CUDA device is available (torch "
             f"{torch.__version__}, CUDA build {torch.version.cuda}); pass "
             "--device cpu to run on the CPU")
-    return torch.device(name)
+    return torch.device("cuda", distributed.local_rank()
+                        % torch.cuda.device_count())
 
 
 class StepScalarBuffer:
@@ -191,13 +197,17 @@ class MetricsWriter:
     """Append-only JSONL metrics log under the log dir, the rebuild's
     native form of the reference's TensorBoard scalar summaries
     (train.py:154-206); ``tensorboard`` mirrors each record into a
-    tfevents file."""
+    tfevents file. ``enabled=False`` (a rank other than 0) writes
+    nothing."""
 
     def __init__(self, log_dir: str, filename: str = "metrics.jsonl",
-                 tensorboard: bool = False):
-        os.makedirs(log_dir, exist_ok=True)
+                 tensorboard: bool = False, enabled: bool = True):
+        self.enabled = enabled
         self.path = os.path.join(log_dir, filename)
         self._tb = None
+        if not enabled:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         if tensorboard:
             from . import tb_events
             self._tb = tb_events.EventWriter(log_dir)
@@ -209,6 +219,8 @@ class MetricsWriter:
         return self._tb
 
     def write(self, record: dict) -> None:
+        if not self.enabled:
+            return
         record = dict(record)
         record.setdefault("wall_time", time.time())
         line = json.dumps(record, default=_json_default)
