@@ -132,7 +132,10 @@ Phases (any failure raises, so the exit code is not 0):
         (the largest difference over the largest magnitude) against
         each CPU step, under the conf's and precision's bounds in
         TRAIN_BOUNDS (the statistics gated against the float64 step,
-        STATS_REF); the CPU's fp32 step against its float64 step too;
+        STATS_REF); the float64 step takes the 2x2 pool switches of the
+        card's fp32 step, and every window where they are not its own
+        choice must be tied within TIE_TOL; the CPU's fp32 step against
+        its float64 step too;
      b. speed at batch 8 (both confs' batch_size) with the confs'
         dropout, Adam and loss, at the default precision: augment_batch
         on a uint8 1024x2048 stack on the card, then train_step; median
@@ -414,8 +417,15 @@ TRAIN_BOUNDS = {
 # 2x2 B2_0, ICNet's 3x3 stem pool) the CPU's fp32 step can take another
 # switch than float64 does, which the card's step follows (10a at seed 1:
 # 1.506e-5 against the fp32 step, 9.7e-7 against float64). The loss and
-# the gradients are gated against both.
+# the gradients are gated against both. The float64 step takes the card's
+# fp32 ENet pool switches (forced_switches): at seed 3 its own choice
+# differed from both fp32 steps' at a near-tied B2_0 window (1.485e-5 of
+# the statistics, PERF.md). Each window where the card's switch is not
+# float64's own must be tied: its top-two margin at most TIE_TOL of the
+# largest magnitude of its image and channel (an fp32 forward's rounding
+# at B2_0; a flip at a decided window fails the phase).
 STATS_REF = "fp64"
+TIE_TOL = 1e-6
 # 11a gates the pseudo step's loss against the CPU's fp32 step alone and
 # prints it against its float64 step: at seeds 0-4 the card's fp32 loss
 # sat within 5.3e-7 of the CPU's fp32 loss, and the CPU's own fp32 loss
@@ -423,7 +433,8 @@ STATS_REF = "fp64"
 # float32 sum of the CE over the batch's 1M pixels), so a float64 gate
 # at 1e-6 passed or failed the card by the rounding of the CPU's fp32
 # step (the per-seed figures: PERF.md §6). The gradients and the
-# statistics are gated against both.
+# statistics are gated against both; the float64 step takes the card's
+# pool switches, as 10a's does.
 AL_LOSS_REF = "fp32"
 # the keys of each metrics.jsonl record of the train CLI (the JAX CLI's)
 TRAIN_RECORD_KEYS = {
@@ -2109,23 +2120,117 @@ def train_errors(got, want, out, ref) -> dict:
             "stats": stats}
 
 
+def recorded_switches(fn):
+    """``fn()`` with the switches of every 2x2 pool of ENet
+    (``ops.nn.max_pool_with_switches``: B1_0's, B2_0's) that a forward
+    under autograd takes (a train step's; not the pseudo targets' eval
+    forward) recorded in call order: (its result, the switches on the
+    CPU)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
+    real, record = xops.max_pool_with_switches, []
+
+    def spy(x):
+        out = real(x)
+        if torch.is_grad_enabled():
+            record.append(out[1].detach().cpu())
+        return out
+
+    xops.max_pool_with_switches = spy
+    try:
+        return fn(), record
+    finally:
+        xops.max_pool_with_switches = real
+
+
+def forced_switches(fn, switches):
+    """``fn()`` with each 2x2 pool taking ``switches`` (in call order,
+    as :func:`recorded_switches` gives them) instead of its own maxima:
+    the pooled value is the one at the given position, and the gradient
+    goes there (pools under autograd only, as recorded). Returns (its
+    result, [(windows whose given switch is not the pool's own choice,
+    the largest such window's top-two margin over the largest magnitude
+    of its image and channel)] a call)."""
+    from semanticsegmentationactivelearning_tpu_torch.ops import nn as xops
+    real, given, flips = xops.max_pool_with_switches, iter(switches), []
+
+    def forced(x):
+        if not torch.is_grad_enabled():
+            return real(x)
+        win = xops._to_windows(x)                       # [N, h, w, 4, C]
+        n, h2, w2, _, c = win.shape
+        sw = next(given).to(x.device)
+        idx = sw.reshape(n, h2, w2, 1, c).long()
+        pooled = win.gather(3, idx).squeeze(3)
+        with torch.no_grad():
+            differ = win.argmax(dim=3) != idx.squeeze(3)
+            scale = win.abs().amax(dim=(1, 2, 3), keepdim=True).squeeze(3)
+            margin = (win.amax(dim=3) - pooled) / scale.clamp_min(1e-30)
+            flips.append((int(differ.sum()),
+                          float(margin[differ].max()) if differ.any()
+                          else 0.0))
+        return pooled, sw
+
+    xops.max_pool_with_switches = forced
+    try:
+        return fn(), flips
+    finally:
+        xops.max_pool_with_switches = real
+
+
+def check_flips(flips, what: str) -> str:
+    """Fail unless every window where the card's fp32 switch is not the
+    float64 step's own choice is tied within TIE_TOL; the report."""
+    count = sum(n for n, _ in flips)
+    worst = max((m for _, m in flips), default=0.0)
+    report = (f"{count} windows took the card's switch against float64's "
+              f"own choice, top-two margin at most {worst:.3e} of the "
+              f"plane's largest magnitude (tie tolerance {TIE_TOL:.0e})")
+    if worst > TIE_TOL:
+        raise AssertionError(f"{what}: the card's fp32 step took another "
+                             f"switch than float64 at a decided window: "
+                             f"{report}")
+    return report
+
+
 def check_train_step(seed: int, confs=TRAIN_CONFS, hw=(TH, TW),
                      phase: str = "10a") -> dict:
     """Phase 10a (13a: ``confs`` ICNet's, at ``hw``): one train step at
     batch TN on the card against the CPU's, in fp32 and in float64 (the
     CPU's own fp32 gradients sit a median ~1e-3 from its float64 ones,
-    PERF.md §2; the float64 step shows the card's error alone); the BN
-    statistics gated against the float64 step (STATS_REF)."""
+    PERF.md §2; the float64 step shows the card's error alone); the
+    float64 step takes the 2x2 pool switches of the card's fp32 step
+    (:func:`forced_switches`; the windows where they are not its own
+    choice must be tied, :func:`check_flips`), and the BN statistics are
+    gated against it (STATS_REF)."""
     stack = block_stack(TN, *hw, seed + 20)
     errors = {}
     for name, conf in confs.items():
+        cards = {}
+        for precision in ("default", "fp32"):
+            set_precision(precision)
+            state, step, _ = train_setup(conf, DEV, True, seed)
+            out, switches = recorded_switches(
+                lambda: step(state, fixed_batch(stack, DEV)))
+            torch.cuda.synchronize()
+            if not np.isfinite(out["loss"].item()):
+                raise AssertionError(f"{name}: the loss is not finite")
+            cards[precision] = (state, out, switches)
+        set_precision("fp32")
         refs = {}
         for ref_name, dtype in (("fp32", torch.float32),
                                 ("fp64", torch.float64)):
             ref_state, step, _ = train_setup(conf, "cpu", True, seed)
             ref_state.model.to(dtype)
             t0 = time.perf_counter()
-            ref = step(ref_state, fixed_batch(stack, "cpu", dtype))
+            batch = fixed_batch(stack, "cpu", dtype)
+            if dtype == torch.float64:
+                ref, flips = forced_switches(lambda: step(ref_state, batch),
+                                             cards["fp32"][2])
+                print(f"train {phase} ({name}): the CPU's float64 step on "
+                      f"the card's fp32 switches: "
+                      + check_flips(flips, f"train {phase} ({name})"))
+            else:
+                ref = step(ref_state, batch)
             refs[ref_name] = (ref_state, ref, time.perf_counter() - t0)
         cpu = train_errors(refs["fp32"][0], refs["fp64"][0], refs["fp32"][1],
                            refs["fp64"][1])
@@ -2134,13 +2239,7 @@ def check_train_step(seed: int, confs=TRAIN_CONFS, hw=(TH, TW),
               f"largest rel L2 {cpu['grad']:.3e} ({cpu['grad_tensor']}), "
               f"median {cpu['grad_median']:.3e}; BN statistics "
               f"{cpu['stats']:.3e}")
-        for precision in ("default", "fp32"):
-            set_precision(precision)
-            state, step, _ = train_setup(conf, DEV, True, seed)
-            out = step(state, fixed_batch(stack, DEV))
-            torch.cuda.synchronize()
-            if not np.isfinite(out["loss"].item()):
-                raise AssertionError(f"{name}: the loss is not finite")
+        for precision, (state, out, _) in cards.items():
             for ref_name, (ref_state, ref, secs) in refs.items():
                 err = train_errors(state, ref_state, out, ref)
                 errors[(name, precision, ref_name)] = err
@@ -2161,8 +2260,7 @@ def check_train_step(seed: int, confs=TRAIN_CONFS, hw=(TH, TW),
                     raise AssertionError(
                         f"train step on the card ({name}, {precision}) "
                         f"disagrees with the CPU's in {ref_name}")
-            del state, step
-        del refs
+        del refs, cards
     set_precision("fp32")
     return errors
 
@@ -2485,9 +2583,10 @@ def check_pseudo_step(seed: int) -> dict:
     """Phase 11a: the pseudo-labelling step's targets on the card
     against the CPU's on decided pixels (the smoke's seeded weights,
     Final x25), then one pseudo step on the card (SGD, dropout 0, TF32
-    off) against the CPU's in fp32 and float64 on the targets the card's
-    step used; each at the unlabelled row's median confidence on the
-    CPU, so that half its pixels take a pseudo label."""
+    off) against the CPU's in fp32 and float64 (on the card's pool
+    switches, as 10a's) on the targets the card's step used; each at the
+    unlabelled row's median confidence on the CPU, so that half its
+    pixels take a pseudo label."""
     from semanticsegmentationactivelearning_tpu_torch.models import (
         get_model)
     from semanticsegmentationactivelearning_tpu_torch.ops import acquisition
@@ -2535,8 +2634,9 @@ def check_pseudo_step(seed: int) -> dict:
     real, used = steps.pseudo_targets, []
     steps.pseudo_targets = lambda *a: used.append(real(*a)) or used[-1]
     try:
-        out = steps.make_train_step(state.model, CLASSES, hp,
-                                    pseudo_cfg=cfg)(state, batch)
+        out, switches = recorded_switches(
+            lambda: steps.make_train_step(state.model, CLASSES, hp,
+                                          pseudo_cfg=cfg)(state, batch))
     finally:
         steps.pseudo_targets = real
     torch.cuda.synchronize()
@@ -2553,10 +2653,17 @@ def check_pseudo_step(seed: int) -> dict:
         ref_state.model.to(dtype)
         steps.pseudo_targets = lambda *a: (targets[0].cpu(),  # noqa: E731
                                            targets[1].cpu().to(dtype))
+        ref_step = steps.make_train_step(ref_state.model, CLASSES, hp,
+                                         pseudo_cfg=cfg)
+        ref_batch = pseudo_batch(stack, "cpu", dtype)
         try:
-            ref = steps.make_train_step(ref_state.model, CLASSES, hp,
-                                        pseudo_cfg=cfg)(
-                ref_state, pseudo_batch(stack, "cpu", dtype))
+            if dtype == torch.float64:
+                ref, flips = forced_switches(
+                    lambda: ref_step(ref_state, ref_batch), switches)
+                print("al 11a: the CPU's float64 pseudo step on the card's "
+                      "fp32 switches: " + check_flips(flips, "al 11a"))
+            else:
+                ref = ref_step(ref_state, ref_batch)
         finally:
             steps.pseudo_targets = real
         err = train_errors(state, ref_state, out, ref)
@@ -4180,6 +4287,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and the input batches")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
+
+    def started(phase: int) -> None:
+        print(f"phase {phase} starts at {time.perf_counter() - t_main:.1f} "
+              f"s")
 
     # 1. device
     if not torch.cuda.is_available():
@@ -4200,6 +4312,7 @@ def main(argv=None) -> int:
     from semanticsegmentationactivelearning_tpu_torch.ops.kernels import (
         build)
 
+    started(2)
     # 2. build
     b = build.build()
     build.library()
@@ -4232,12 +4345,14 @@ def main(argv=None) -> int:
                              f"spill (or no ptxas log): {spilled}, {head8}, "
                              f"{deconv}")
 
+    started(3)
     # 3. kernels against their plain versions
     state = seeded_state_dict(get_model("ENet", CLASSES), args.seed)
     model = get_model("ENet", CLASSES).cuda()
     model.load_state_dict(state)
     per_kernel = check_kernels(model, args.seed)
 
+    started(4)
     # 4. the serving path
     launches, kernel_ms, plain_ms, served = serve(state, args.seed)
     launches = dict(zip(("front", "mid", "tail"), launches))
@@ -4245,15 +4360,18 @@ def main(argv=None) -> int:
     del served, model
     torch.cuda.empty_cache()
 
+    started(5)
     # 5. the scoring path
     per_kernel.update(check_score_kernels(args.seed))
     score_launches, score_ms, score_plain_ms = score_pool(args.seed)
     launches.update(score_launches)
 
+    started(6)
     # 6. where the time goes
     torch.cuda.empty_cache()
     where_the_time_goes(args.seed)
 
+    started(7)
     # 7. ICNet pool scoring
     torch.cuda.empty_cache()
     per_kernel.update(check_icnet_kernels(args.seed))
@@ -4263,6 +4381,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     profile_icnet(args.seed)
 
+    started(8)
     # 8. ICNet serving
     torch.cuda.empty_cache()
     per_kernel.update(check_icnet_predict_kernels(args.seed))
@@ -4274,12 +4393,14 @@ def main(argv=None) -> int:
     profile_icnet_serving(icnet)
     del icnet
 
+    started(9)
     # 9. the rigs
     torch.cuda.empty_cache()
     rig_results, rig_launches = run_rigs(args.seed)
     per_kernel.update(rig_results)
     launches.update(rig_launches)
 
+    started(10)
     # 10. training
     torch.cuda.empty_cache()
     check_train_step(args.seed)
@@ -4290,6 +4411,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_train_cli(args.seed)
 
+    started(11)
     # 11. the active-learning loop
     torch.cuda.empty_cache()
     t11 = time.perf_counter()
@@ -4310,6 +4432,7 @@ def main(argv=None) -> int:
         run_al_cli(args.seed, rec)
         print(f"al: phase 11 in {time.perf_counter() - t11:.1f} s")
 
+        started(12)
         # 12. secondary acquisition
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
@@ -4321,6 +4444,7 @@ def main(argv=None) -> int:
         secondary = run_secondary_cli(args.seed, rec, name)
         print(f"secondary: phase 12 in {time.perf_counter() - t12:.1f} s")
 
+        started(13)
         # 13. ICNet's training
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
@@ -4343,6 +4467,7 @@ def main(argv=None) -> int:
             launches[k] += v
         print(f"icnet train: phase 13 in {time.perf_counter() - t13:.1f} s")
 
+        started(14)
         # 14. Freiburg multi-modal and the migration entries
         torch.cuda.empty_cache()
         t14 = time.perf_counter()
@@ -4358,6 +4483,7 @@ def main(argv=None) -> int:
             launches[k] += v
         print(f"freiburg: phase 14 in {time.perf_counter() - t14:.1f} s")
 
+        started(15)
         # 15. multi-process runs, on phase 11's records
         torch.cuda.empty_cache()
         dp = multi_process(args.seed, rec)

@@ -76,8 +76,10 @@ through the kernels and gathers them in pool order, so every rank picks
 the same examples. Rank 0 alone writes ``state.json``, the metrics, the
 checkpoints and the images; after a barrier it broadcasts the round's
 best checkpoint path, from which every rank restores. The pool pass is
-data-parallel only (the JAX CLI's spatially sharded scoring is ROADMAP
-Queue 1 item 10).
+data-parallel only: the JAX CLI's spatially sharded scoring is not
+ported, since with the batch dividing by the world a space group would
+hold as many pixels a rank as data parallelism does (ROADMAP.md "Not to
+port").
 """
 
 from __future__ import annotations
@@ -447,7 +449,7 @@ def main(args) -> int:
     if world > 1:
         logger.info("Data-parallel over %d ranks: %d of each global batch "
                     "of %d a rank; pool scoring is data-parallel only "
-                    "(spatial sharding: ROADMAP.md Queue 1 item 10)", world,
+                    "(spatial sharding: ROADMAP.md \"Not to port\")", world,
                     local_bs, batch_size)
     elif distributed.launched():
         logger.info("A world of one rank: the collectives run on it")

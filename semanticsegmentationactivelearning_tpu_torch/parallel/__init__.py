@@ -1,6 +1,6 @@
 """Multi-process runs of the PyTorch port (the counterpart of
 ``semanticsegmentationactivelearning_tpu.parallel``'s data-parallel
-part; spatial sharding is ROADMAP.md Queue 1 item 10)."""
+part; spatial sharding is not ported, ROADMAP.md "Not to port")."""
 
 from .distributed import (active, all_gather_rows, all_reduce_grads,
                           all_reduce_sum, batches, broadcast_str,

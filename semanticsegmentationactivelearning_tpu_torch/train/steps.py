@@ -33,7 +33,7 @@ norm and the CE's divisor are global, the train step sums the gradients
 over the ranks and adds the regularization on rank 0 alone, and the
 metrics (loss, cost, confusion) are the global batch's on every rank.
 Not ported: grouped dispatch, remat and spatial sharding (ROADMAP.md
-"Not to port", Queue 1 item 10).
+"Not to port").
 """
 
 from __future__ import annotations
